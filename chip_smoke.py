@@ -9,8 +9,11 @@ Phases, each of which fails the run when it fails:
   2. the build: every hand-written kernel of the port from `csrc/`, one
      nvcc per source, all started together;
   3. the member sweep (K1) against its plain PyTorch version, exactly,
-     over a grid of shapes plus the sentinel and zero-padding cases,
-     with the kernel, plain and library times and the byte/compare bound;
+     over a grid of shapes plus rows with equal queries, zero padding and
+     lengths on both sides of the search/stream switch, and the sentinel
+     cases, with the kernel, plain and library times, the byte bound and
+     how many rows took each regime (`member_sweep_crossover.py` measures
+     where the regimes cross);
   4. the main path: an embedded `Server(device="cuda")` loads a 3-level
      fan-out graph (1 -> 100 -> 10k -> 1M edges, the level-3 pool split
      across the 2^32 uid segment boundary, a 1%-hot `tag` on every level-3
@@ -18,7 +21,8 @@ Phases, each of which fails the run when it fails:
      device path forced and the member sweep on. Every answer must equal
      the port's host path and an independent numpy reference, and the
      member sweep must have launched during query (b);
-  5. K1 once more, on the inputs the main path gave it.
+  5. K1 once more, on the inputs the main path gave it, after checking
+     that they meet its precondition (rows sorted as uint32).
 
 `--profile` adds, for the named queries, where one warm run's time goes:
 host functions by own time (cProfile) and the card's busy share
@@ -40,9 +44,7 @@ import numpy as np
 
 SEG = 1 << 32
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-# H100 SXM peak outside the tensor cores (float32, 67 TFLOP/s): the rate
-# the member sweep's int32 compares are bounded by
-SCALAR_OPS_PER_S = 67e12
+U32 = 0xFFFFFFFF
 
 QUERIES = {
     # plain 3-level traversal, counts at the leaves
@@ -337,42 +339,116 @@ def _events_ms(fn, reps):
     return float(np.median(times))
 
 
+def kernel_device_ms(fn, reps=20, name="member_sweep_kernel"):
+    """Device time of one launch of the kernel `name` in ms, from the
+    card's own trace (torch.profiler, CUPTI): the kernel alone, without
+    the host's time between launches that CUDA events around back-to-back
+    calls also take in."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(3):  # a trace now and then comes back without the kernel
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages() if name in e.key and e.count]
+        if ev:
+            return ev[0].self_device_time_total / ev[0].count / 1e3
+        seen = [e.key[:60] for e in prof.key_averages()]
+    raise AssertionError(f"no device time traced for {name} in 3 traces; saw {seen}")
+
+
 def _to_i64(x):
     import torch
 
-    return x.to(torch.int64) & 0xFFFFFFFF
+    return x.to(torch.int64) & U32
 
 
-def library_membership(A64, LA, B64, LB):
-    """One batched torch.searchsorted + gather-compare: the yardstick,
-    timed here and called nowhere in the port. B64 rows must be sorted
-    over their full width (UINT32_MAX padding keeps them so)."""
+def sorted_keys(B, LB):
+    """B's rows as int64 u32 values with 2^32 past LB: sorted over the full
+    width whatever the padding, for torch.searchsorted."""
     import torch
 
-    idx = torch.searchsorted(B64, A64)
-    pb = B64.shape[1]
+    cols = torch.arange(B.shape[1], device=B.device)
+    return torch.where(cols < LB.unsqueeze(1), _to_i64(B), 1 << 32)
+
+
+def library_membership(A64, LA, Bkey, LB):
+    """One batched torch.searchsorted + gather-compare: the yardstick,
+    timed here and called nowhere in the port. Bkey from sorted_keys."""
+    import torch
+
+    idx = torch.searchsorted(Bkey, A64)
+    pb = Bkey.shape[1]
     hit = (idx < LB.unsqueeze(1)) & (
-        torch.gather(B64, 1, idx.clamp(max=pb - 1)) == A64
+        torch.gather(Bkey, 1, idx.clamp(max=pb - 1)) == A64
     )
     return hit & (torch.arange(A64.shape[1], device=A64.device) < LA.unsqueeze(1))
 
 
 def sweep_bound_ms(A, LA, B, LB):
-    """Least time for this call's work: each valid query and each valid
-    element of B read once, lengths read and the mask written once,
-    against one compare per (valid query, valid element) pair."""
-    la = LA.to("cpu").numpy().astype(np.int64)
-    lb = LB.to("cpu").numpy().astype(np.int64)
+    """Least time any correct method could take on these sorted rows, in
+    ms, and what bounds it. Bytes: A's valid elements, 8 per row for LA
+    and LB, the n * pa mask, and every distinct 32-byte sector of B that
+    holds, for a valid query, its equal element or, where B has none, its
+    neighbours in the valid prefix (no method can answer the query without
+    them), all at the card's memory rate. Compares are left out: the
+    fewest any method needs, about LA * log2(LB / LA + 1) per row, at most
+    32 per query, take less time at 67 T/s than the query's own 4 bytes of
+    A take at 3.35 TB/s. So the bound is always the bytes."""
+    import torch
+
     n, pa = A.shape
-    nbytes = 4 * la.sum() + 4 * lb.sum() + 8 * n + n * pa
-    ops = float((la * lb).sum())
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / SCALAR_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    pb = B.shape[1]
+    la = LA.to(torch.int64)
+    nbytes = 4 * int(la.sum()) + 8 * n + n * pa
+    if pb and n:
+        lb = LB.to(torch.int64).unsqueeze(1)
+        key = sorted_keys(B, LB)
+        q = _to_i64(A)
+        p = torch.searchsorted(key, q)
+        eq = (p < lb) & (torch.gather(key, 1, p.clamp(max=pb - 1)) == q)
+        valid = torch.arange(pa, device=A.device) < la.unsqueeze(1)
+        row0 = torch.arange(n, device=A.device).unsqueeze(1) * pb
+        at = torch.where(valid & (eq | (p < lb)), row0 + p, -1)  # equal or next
+        before = torch.where(valid & ~eq & (p > 0), row0 + p - 1, -1)
+        elems = torch.cat([at[at >= 0], before[before >= 0]])
+        nbytes += 32 * int(torch.unique(elems // 8).numel())  # B 32-byte aligned
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def all_of_b_ms(A, LA, B, LB):
+    """The byte term of the compare-all kernel's bound, for comparison:
+    every valid element of A and B read once, the lengths and the mask,
+    at the card's memory rate (ms)."""
+    n, pa = A.shape
+    nbytes = 4 * int(LA.sum()) + 4 * int(LB.sum()) + 8 * n + n * pa
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def regimes(LA, LB):
+    """Rows per regime of the kernel, from the lengths alone, by the
+    kernel's own rule (`member_sweep.search_from`)."""
+    import torch
+
+    from dgraph_tpu_torch.ops import member_sweep
+
+    la, lb = LA.to(torch.int64), LB.to(torch.int64)
+    live = (la > 0) & (lb > 0)
+    table = torch.tensor([member_sweep.search_from(k) for k in range(member_sweep.LANE + 1)],
+                         device=la.device)
+    search = live & (lb >= table[la.clamp(0, member_sweep.LANE)])
+    return {"search": int(search.sum()), "stream": int((live & ~search).sum()),
+            "empty": int((~live).sum())}
 
 
 def measure_sweep(A, LA, B, LB, reps=7):
-    """Kernel vs plain (exact), and the times of kernel, plain, library."""
+    """Kernel vs plain (exact), the times of kernel, plain and library,
+    the bound, and the rows per regime."""
     import torch
 
     from dgraph_tpu_torch.ops import member_sweep
@@ -381,40 +457,59 @@ def measure_sweep(A, LA, B, LB, reps=7):
     want = member_sweep.membership_batch_plain(A, LA, B, LB)
     torch.cuda.synchronize()
     err = int((got != want).sum().item())
-    A64, B64 = _to_i64(A), _to_i64(B)
-    lib = library_membership(A64, LA, B64, LB)
+    A64, Bkey = _to_i64(A), sorted_keys(B, LB)
+    lib = library_membership(A64, LA, Bkey, LB)
     lib_agrees = bool(torch.equal(lib, want))
     bound, bound_by = sweep_bound_ms(A, LA, B, LB)
     return {
         "mismatches": err,
         "library_agrees": lib_agrees,
         "ms": _events_ms(lambda: member_sweep.membership_batch(A, LA, B, LB), reps),
+        "device_ms": kernel_device_ms(lambda: member_sweep.membership_batch(A, LA, B, LB)),
         "plain_ms": _events_ms(
             lambda: member_sweep.membership_batch_plain(A, LA, B, LB), max(3, reps // 2)
         ),
-        "library_ms": _events_ms(lambda: library_membership(A64, LA, B64, LB), reps),
+        "library_ms": _events_ms(lambda: library_membership(A64, LA, Bkey, LB), reps),
         "bound_ms": bound,
         "bound_by": bound_by,
+        "regimes": regimes(LA, LB),
     }
 
 
-def random_rows(n, pa, pb, seed, device="cuda"):
+def random_rows(n, pa, pb, seed, kind="random", device="cuda"):
     """Sorted B rows (valid prefix LB in [pb/2, pb], UINT32_MAX after),
-    A rows of LA <= pa queries, about half drawn from B, as int32 bits."""
+    A rows of LA <= pa queries, about half drawn from B, as int32 bits.
+    `kind`: "full" sets LA = pa and LB = pb; "equal" repeats each query
+    once; "zero_pad" pads A and B with zeros; "switch" takes LA in
+    [1, pa] and LB one below, then at, the least LB the kernel searches
+    for LA queries, on alternate rows (pb >= that for pa)."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(seed)
-    U = 0xFFFFFFFF
     B = torch.randint(0, 1 << 32, (n, pb), generator=gen, device=device).sort(1).values
     LB = torch.randint(max(1, pb // 2), pb + 1, (n,), generator=gen, device=device)
+    LA = torch.randint(0, pa + 1, (n,), generator=gen, device=device)
+    if kind == "full":
+        LA.fill_(pa)
+        LB.fill_(pb)
+    elif kind == "switch":
+        from dgraph_tpu_torch.ops.member_sweep import search_from
+
+        if pb < search_from(pa):
+            raise ValueError(f"switch rows need pb >= {search_from(pa)}")
+        LA = LA.clamp(min=1)
+        at = torch.tensor([search_from(k) for k in range(pa + 1)], device=device)
+        LB = at[LA] - torch.arange(n, device=device) % 2
+    pad = 0 if kind == "zero_pad" else U32
     cols = torch.arange(pb, device=device)
-    B = torch.where(cols < LB.unsqueeze(1), B, U)
+    B = torch.where(cols < LB.unsqueeze(1), B, pad)
     pick = torch.randint(0, 1 << 30, (n, pa), generator=gen, device=device) % LB.unsqueeze(1)
     fresh = torch.randint(0, 1 << 32, (n, pa), generator=gen, device=device)
     coin = torch.rand((n, pa), generator=gen, device=device) < 0.5
     A = torch.where(coin, torch.gather(B, 1, pick), fresh).sort(1).values
-    LA = torch.randint(0, pa + 1, (n,), generator=gen, device=device)
-    A = torch.where(torch.arange(pa, device=device) < LA.unsqueeze(1), A, U)
+    if kind == "equal":
+        A[:, 1::2] = A[:, 0 : pa - pa % 2 : 2]
+    A = torch.where(torch.arange(pa, device=device) < LA.unsqueeze(1), A, pad)
 
     def bits(x):
         return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32).contiguous()
@@ -449,6 +544,50 @@ def sweep_edge_cases():
     assert run([0, 5], [5], 0) == [False, True]
 
 
+def sweep_grid():
+    """Phase 3: kernel == plain over the grid and the special rows."""
+    from dgraph_tpu_torch.ops import member_sweep
+
+    shapes = []
+    for pb in (1024, 65536, 1 << 20):
+        for pa in (1, 8, 64, 128):
+            for n in (1, 64, 4096):
+                shapes.append(("random", n, pa, pb))
+    shapes += [("equal", 4096, 64, 1024), ("equal", 1024, 128, 65536),
+               ("zero_pad", 4096, 64, 1024), ("zero_pad", 64, 128, 1 << 20)]
+    shapes += [("switch", 4096, pa, member_sweep.search_from(pa)) for pa in (4, 64, 128)]
+    for kind, n, pa, pb in shapes:
+        # keep B within 1 GiB and a shape within 2^35 compares of the
+        # plain version
+        m = min(n, (1 << 28) // pb, (1 << 35) // (pa * pb))
+        rows = random_rows(m, pa, pb, seed=pa * 131 + pb + n, kind=kind)
+        r = measure_sweep(*rows)
+        if r["mismatches"] or not r["library_agrees"]:
+            raise AssertionError(f"{kind} n={m} pa={pa} pb={pb}: {r}")
+        cut = f" (n cut from {n})" if m != n else ""
+        print(f"    {kind} n={m}{cut} pa={pa} pb={pb}: equal; kernel {r['ms']:.6f} "
+              f"(device {r['device_ms']:.6f}) plain {r['plain_ms']:.6f} "
+              f"library {r['library_ms']:.6f} bound {r['bound_ms']:.6f} "
+              f"({r['bound_by']}); rows {r['regimes']}", flush=True)
+        del rows
+
+
+def check_sorted(A, LA, B, LB):
+    """The kernel's precondition: every row sorted ascending as uint32
+    within its length. Raises on the first row that is not."""
+    import torch
+
+    for name, X, L in (("A", A, LA), ("B", B, LB)):
+        if X.shape[1] < 2:
+            continue
+        x = _to_i64(X)
+        inside = torch.arange(1, X.shape[1], device=X.device) < L.unsqueeze(1)
+        bad = ((x[:, 1:] < x[:, :-1]) & inside).any(1)
+        if bool(bad.any()):
+            raise AssertionError(f"main-path {name} row {int(bad.nonzero()[0, 0])} "
+                                 "is not sorted as uint32")
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -472,7 +611,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; nothing was run", file=sys.stderr)
         return 2
-    from dgraph_tpu_torch.ops import cuda_build, member_sweep
+    from dgraph_tpu_torch.ops import cuda_build
 
     t_start = time.perf_counter()
     card = card_line()
@@ -486,22 +625,7 @@ def main(argv=None) -> int:
 
     print("[3] member sweep vs plain (exact), times in ms at " + card, flush=True)
     sweep_edge_cases()
-    grid = []
-    for pb in (1024, 65536, 1 << 20):
-        for pa in (1, 8, 64, 128):
-            for n in (1, 64, 4096):
-                # keep B within 1 GiB and a shape within 2^35 compares
-                m = min(n, (1 << 28) // pb, (1 << 35) // (pa * pb))
-                rows = random_rows(m, pa, pb, seed=pa * 131 + pb + n)
-                r = measure_sweep(*rows)
-                if r["mismatches"] or not r["library_agrees"]:
-                    raise AssertionError(f"n={m} pa={pa} pb={pb}: {r}")
-                cut = f" (n cut from {n})" if m != n else ""
-                print(f"    n={m}{cut} pa={pa} pb={pb}: equal; kernel {r['ms']:.6f} "
-                      f"plain {r['plain_ms']:.6f} library {r['library_ms']:.6f} "
-                      f"bound {r['bound_ms']:.6f} ({r['bound_by']})", flush=True)
-                grid.append({"n": m, "pa": pa, "pb": pb, **r})
-                del rows
+    sweep_grid()
 
     print("[4] serving the fan-out graph on the card", flush=True)
     s = serve("cuda", log=lambda m: print("    " + m, flush=True),
@@ -519,13 +643,15 @@ def main(argv=None) -> int:
 
     print("[5] member sweep on the main path's inputs", flush=True)
     A, LA, B, LB = s["captured"]
+    check_sorted(A, LA, B, LB)
     main = measure_sweep(A, LA, B, LB)
     if main["mismatches"]:
         raise AssertionError(f"main-path inputs: kernel != plain: {main}")
-    print(f"    n={A.shape[0]} pa={A.shape[1]} pb={B.shape[1]}: equal; kernel "
-          f"{main['ms']:.6f} plain {main['plain_ms']:.6f} library "
-          f"{main['library_ms']:.6f} bound {main['bound_ms']:.6f} "
-          f"({main['bound_by']})", flush=True)
+    print(f"    n={A.shape[0]} pa={A.shape[1]} pb={B.shape[1]}: rows sorted as "
+          f"uint32; equal; kernel {main['ms']:.6f} (device {main['device_ms']:.6f}) "
+          f"plain {main['plain_ms']:.6f} library {main['library_ms']:.6f} "
+          f"bound {main['bound_ms']:.6f} ({main['bound_by']}); all-of-B byte time "
+          f"{all_of_b_ms(A, LA, B, LB):.6f}; rows {main['regimes']}", flush=True)
     print(f"    total {time.perf_counter() - t_start:.3f}s", flush=True)
 
     print(json.dumps({"kernels": [{

@@ -1,14 +1,25 @@
-"""Member sweep: batched membership of <=128 queries per row by compare-all.
+"""Member sweep (K1): batched membership of <=128 queries per sorted row.
 
-Port of `dgraph_tpu/ops/pallas_setops.py`. The kernel is
-`csrc/member_sweep.cu`, written by hand for Hopper (its head says what
-bounds it and how); `membership_batch_plain` beside it is the same
-function in plain PyTorch, taken for tensors on the CPU.
+Port of `dgraph_tpu/ops/pallas_setops.py`, whose Pallas kernel
+(`_member_kernel`) compared every query with every element of B. The
+kernel here is `csrc/member_sweep.cu`, written by hand for Hopper: one
+warp per row, which either binary-searches each query in B (few queries
+against a long row, where the chain of dependent loads bounds it) or
+stages B's short valid window in shared memory once and searches the
+queries there (where B's bytes bound it). A row is searched from
+LB >= max(64 LA, 768) on, where the H100 measured the crossover (the
+reference's search-against-merge rule is LA * 32 <= LB); the rule lives
+in the kernel's source alone, and `search_from` asks it. The source
+head says what bounds each regime and how.
+`membership_batch_plain` beside it is the same function in plain
+PyTorch, by compare-all, taken for tensors on the CPU.
 
-The sweep asks only for equality, so it takes the uid bits as int32: a
-uint32 numpy row viewed as int32 (`np.ndarray.view(np.int32)`). Validity
-is judged by index against the lengths, never by value, so 0xFFFFFFFF
-stays a legal uid and padding never makes a hit.
+The rows must be sorted ascending as uint32 within LA / LB (the
+reference's precondition). The kernel takes the uid bits as int32: a
+uint32 numpy row viewed as int32 (`np.ndarray.view(np.int32)`), and
+compares them unsigned. Validity is judged by index against the lengths,
+never by value, so 0xFFFFFFFF stays a legal uid and padding never makes
+a hit.
 """
 
 from __future__ import annotations
@@ -19,7 +30,8 @@ import torch
 
 from dgraph_tpu_torch.ops import setops
 
-LANE = 128  # queries per row: one per thread of a CTA
+LANE = 128  # queries per row: four per lane of the row's warp
+MAX_PB = (1 << 31) - 1  # positions in a row are int32 in the kernel
 # plain version: elements of B compared per chunk, bounding the
 # (n, pa, chunk) broadcast to about 2^26 booleans
 _PLAIN_ELEMS = 1 << 26
@@ -29,26 +41,33 @@ _PLAIN_ELEMS = 1 << 26
 LAUNCHES = 0
 PLAIN_CALLS = 0
 
-_fn = None
-_span = 0  # elements of B per CTA, read from the library
+_lib = None
 
 
-def _kernel():
-    global _fn, _span
-    if _fn is None:
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a built member_sweep library."""
+    lib.member_sweep_launch.restype = ctypes.c_int
+    lib.member_sweep_launch.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int
+    ] * 3 + [ctypes.c_void_p]
+    lib.member_sweep_search_from.restype = ctypes.c_int64
+    lib.member_sweep_search_from.argtypes = [ctypes.c_int]
+    return lib
+
+
+def _kernel() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
         from dgraph_tpu_torch.ops import cuda_build
 
-        lib = cuda_build.load("member_sweep")
-        fn = lib.member_sweep_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p
-        ]
-        lib.member_sweep_span.argtypes = []
-        lib.member_sweep_span.restype = ctypes.c_int
-        _span = int(lib.member_sweep_span())
-        _fn = fn
-    return _fn
+        _lib = bind(cuda_build.load("member_sweep"))
+    return _lib
+
+
+def search_from(la: int) -> int:
+    """The least LB at which the kernel searches a row of `la` valid
+    queries; shorter rows are streamed. Builds the kernel if needed."""
+    return int(_kernel().member_sweep_search_from(int(la)))
 
 
 def _check(A, LA, B, LB):
@@ -57,6 +76,8 @@ def _check(A, LA, B, LB):
     n, pa = A.shape
     if pa > LANE:
         raise ValueError(f"member sweep is for <=128 queries per row, got {pa}")
+    if B.shape[1] > MAX_PB:
+        raise ValueError(f"rows of B longer than {MAX_PB}")
     for name, t, shape in (("LA", LA, (n,)), ("LB", LB, (n,))):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
@@ -68,7 +89,7 @@ def _check(A, LA, B, LB):
 
 
 def membership_batch_plain(A, LA, B, LB) -> torch.Tensor:
-    """Plain PyTorch version: a chunked broadcast compare over B.
+    """Plain PyTorch version: a chunked compare-all broadcast over B.
     A (n, pa), B (n, pb) int32; LA, LB (n,). Returns (n, pa) bool."""
     n, pa = A.shape
     pb = B.shape[1]
@@ -87,9 +108,10 @@ def membership_batch_plain(A, LA, B, LB) -> torch.Tensor:
 def membership_batch(A, LA, B, LB) -> torch.Tensor:
     """hit[i, j] = j < LA[i] and A[i, j] in B[i, :LB[i]].
 
-    A (n, pa <= 128) and B (n, pb) int32 uid bits, LA and LB (n,) int32.
-    On a CUDA tensor this launches the kernel; on a CPU tensor it runs
-    the plain version. Returns (n, pa) bool."""
+    A (n, pa <= 128) and B (n, pb) int32 uid bits, rows sorted as uint32
+    within LA / LB, which are (n,) int32. On a CUDA tensor this launches
+    the kernel; on a CPU tensor it runs the plain version. Returns
+    (n, pa) bool."""
     global LAUNCHES, PLAIN_CALLS
     _check(A, LA, B, LB)
     if A.device.type == "cpu":
@@ -100,15 +122,14 @@ def membership_batch(A, LA, B, LB) -> torch.Tensor:
     for name, t in (("A", A), ("LA", LA), ("B", B), ("LB", LB)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    fn = _kernel()
+    lib = _kernel()
     n, pa = A.shape
     pb = B.shape[1]
-    if -(-pb // _span) > 65535:
-        raise ValueError(f"rows of B longer than {65535 * _span}")
+    # every byte is written by the row's warp
     hits = torch.empty((n, pa), dtype=torch.uint8, device=A.device)
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(
+        err = lib.member_sweep_launch(
             A.data_ptr(), LA.data_ptr(), B.data_ptr(), LB.data_ptr(),
             hits.data_ptr(), n, pa, pb, stream,
         )

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone.
 
-- No module of `dgraph_tpu_torch/`, nor `chip_smoke.py`, imports jax or
-  anything of `dgraph_tpu`, lazily or not (an AST walk).
+- No module of `dgraph_tpu_torch/`, nor `chip_smoke.py` or
+  `member_sweep_crossover.py`, imports jax or anything of `dgraph_tpu`,
+  lazily or not (an AST walk).
 - With both names blocked on `sys.meta_path`, a subprocess imports the
   port, alters a schema, commits a mutation and answers a query on the
   CPU.
@@ -81,7 +82,8 @@ def _banned_imports(path):
 
 
 @pytest.mark.parametrize(
-    "rel", _port_files() + ["../chip_smoke.py"], ids=lambda r: r
+    "rel", _port_files() + ["../chip_smoke.py", "../member_sweep_crossover.py"],
+    ids=lambda r: r,
 )
 def test_no_jax_or_reference_imports(rel):
     assert _banned_imports(os.path.normpath(os.path.join(PORT, rel))) == []
