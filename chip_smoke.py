@@ -22,11 +22,27 @@ Phases, each of which fails the run when it fails:
      the port's host path and an independent numpy reference, and the
      member sweep must have launched during query (b);
   5. K1 once more, on the inputs the main path gave it, after checking
-     that they meet its precondition (rows sorted as uint32).
+     that they meet its precondition (rows sorted as uint32);
+  6. the vector kernels against their plain PyTorch versions over a grid:
+     KV1 (`vector_topk`, distance epilogue + masked top-k) bit for bit,
+     KV2 (`ivf_slab_scan`) within `ivf_scan.tolerance`, with kernel,
+     device, plain and library times and the bound;
+  7. the vector main path: a `Server(device="cuda")` serves `similar_to`
+     over 1,000,000 x 768 float32 vectors (the mixture-of-gaussians corpus
+     of benchmarks/bench_suite.py, rewritten here), 990,000 bulk-loaded
+     into the predicate's index and the last 10,000 committed as RDF
+     with a name, plus the first 100,000 as `emb_small` (brute tier).
+     Four reads: plain `similar_to` (IVF tier), the same with `ef: 64`,
+     `similar_to` on `emb_small`, and `search_batch` of 64 queries (brute
+     tier). Brute answers must equal an exact numpy top-k outside
+     near-ties, IVF recall@10 over 64 queries must reach 0.90, the card
+     must answer as the same index's CPU float path, KV1 and KV2 must have
+     launched, and both are held against their plain versions on the
+     inputs the served reads gave them.
 
-`--profile` adds, for the named queries, where one warm run's time goes:
-host functions by own time (cProfile) and the card's busy share
-(torch.profiler).
+`--profile` adds, for the named queries (a-d of phase 4, e-h of phase
+7), where one warm run's time goes: host functions by own time
+(cProfile) and the card's busy share (torch.profiler).
 
 The second-to-last lines are the kernel table (JSON) and the card; the
 last line is `{"ok": true, "device": {...}}`. Without a CUDA card the
@@ -44,6 +60,7 @@ import numpy as np
 
 SEG = 1 << 32
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 U32 = 0xFFFFFFFF
 
 QUERIES = {
@@ -179,10 +196,11 @@ def _run_query(server, q):
     return server.query(q, want="raw")["data"].raw
 
 
-def profile_query(server, q, log=print, top=12):
+def profile_query(server, q, log=print, top=12, reps=5):
     """Where one warm query's time goes: the host functions by own time
     (cProfile), and the card's busy share (torch.profiler: the sum of
-    device kernel and copy time over the query's wall time)."""
+    device kernel and copy time over the query's wall time, over `reps`
+    calls). `q` is a DQL string, or a callable that runs the work."""
     import cProfile
     import io
     import pstats
@@ -190,11 +208,12 @@ def profile_query(server, q, log=print, top=12):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    run = q if callable(q) else (lambda: _run_query(server, q))
     pr = cProfile.Profile()
     torch.cuda.synchronize()
     t = time.perf_counter()
     pr.enable()
-    _run_query(server, q)
+    run()
     pr.disable()
     wall_ms = (time.perf_counter() - t) * 1e3
     buf = io.StringIO()
@@ -203,17 +222,27 @@ def profile_query(server, q, log=print, top=12):
     for line in buf.getvalue().splitlines():
         if line.strip() and line.lstrip()[0].isdigit():
             log("      " + line.strip())
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        _run_query(server, q)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    log(f"device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall "
-        f"(idle share {1 - busy_ms / wall_ms:.4f}); by kernel:")
+    best = None
+    for _ in range(3):  # a trace now and then comes back without kernels
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3 / reps
+        # the device's own records (kernels, copies, sets): a CPU op's
+        # device time repeats its kernels'
+        rows = [e for e in prof.key_averages() if e.self_device_time_total > 0
+                and str(getattr(e, "device_type", "")).endswith("CUDA")]
+        busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / reps
+        if best is None or busy_ms > best[0]:
+            best = (busy_ms, wall_ms, rows)
+    busy_ms, wall_ms, rows = best
+    log(f"device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall per call over {reps} calls "
+        f"(idle share {1 - busy_ms / wall_ms:.4f}; the fullest of 3 traces); by kernel, per call:")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"      {e.self_device_time_total / 1e3:10.3f} ms  x{e.count:<5} {e.key[:90]}")
+        log(f"      {e.self_device_time_total / 1e3 / reps:10.3f} ms  x{e.count / reps:<5g} "
+            f"{e.key[:90]}")
 
 
 def serve(device="cuda", fanout=100, pool=200_000, reps=3, log=print, profile=()):
@@ -340,26 +369,43 @@ def _events_ms(fn, reps):
 
 
 def kernel_device_ms(fn, reps=20, name="member_sweep_kernel"):
-    """Device time of one launch of the kernel `name` in ms, from the
-    card's own trace (torch.profiler, CUPTI): the kernel alone, without
-    the host's time between launches that CUDA events around back-to-back
-    calls also take in."""
+    """Device time of one call of fn in ms, from the card's own trace
+    (torch.profiler, CUPTI), without the host's time between launches
+    that CUDA events around back-to-back calls also take in. `name`: the
+    kernel fn launches once, or {kernel name: launches per call} for a
+    call that launches several. The trace may hold fewer launches than
+    were made (calls whose trace came back short are noted in
+    TRACE_SHORT), so each kernel's time is its traced average times its
+    launches per call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    per_call = {name: 1} if isinstance(name, str) else dict(name)
     fn()
     torch.cuda.synchronize()
     seen = []
-    for _ in range(3):  # a trace now and then comes back without the kernel
+    for _ in range(3):  # a trace now and then comes back without a kernel
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        ev = [e for e in prof.key_averages() if name in e.key and e.count]
-        if ev:
-            return ev[0].self_device_time_total / ev[0].count / 1e3
+        got = {}
+        for e in prof.key_averages():
+            for n in per_call:
+                if e.count and n in e.key:
+                    t, c = got.get(n, (0.0, 0))
+                    got[n] = (t + e.self_device_time_total, c + e.count)
+        if set(got) == {n for n, c in per_call.items() if c}:
+            for n, (_, c) in got.items():
+                if c != reps * per_call[n]:
+                    TRACE_SHORT.append((n, c, reps * per_call[n]))
+            return sum(t / c * per_call[n] for n, (t, c) in got.items()) / 1e3
         seen = [e.key[:60] for e in prof.key_averages()]
-    raise AssertionError(f"no device time traced for {name} in 3 traces; saw {seen}")
+    raise AssertionError(f"no device time traced for {sorted(per_call)} in 3 traces; "
+                         f"saw {seen}")
+
+
+TRACE_SHORT = []  # (kernel, calls traced, calls made) where they differ
 
 
 def _to_i64(x):
@@ -589,6 +635,551 @@ def check_sorted(A, LA, B, LB):
 
 
 # ---------------------------------------------------------------------------
+# KV1 / KV2: the vector kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# f32 operations per element of the distance epilogue, by metric
+_EPILOGUE_OPS = {"euclidean": 3, "cosine": 5, "dotproduct": 1, "distance": 0}
+
+
+def _bound(nbytes, ops):
+    """(ms, what bounds it): the larger of the bytes at the card's memory
+    rate and the f32 operations at its f32 rate."""
+    b, o = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS_PER_S * 1e3
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
+def topk_bound_ms(x, k, metric, sqnorm=None, valid=None, qstat=None, col_index=None):
+    """KV1's least time: x read once, and each of sqnorm, valid, qstat and
+    col_index once where the call gives it and the metric reads it (only
+    euclidean and cosine read sqnorm and qstat), the (rows, k) distances
+    and indices written once; and the epilogue's operations, one per
+    element and op."""
+    rows, w = x.shape
+    n = w if col_index is None else col_index.shape[0]
+    nbytes = 4 * rows * w + 8 * rows * k
+    stats = metric in ("euclidean", "cosine")
+    for t, read in ((sqnorm, stats), (qstat, stats), (valid, True), (col_index, True)):
+        if t is not None and read:
+            nbytes += t.numel() * t.element_size()
+    return _bound(nbytes, rows * n * _EPILOGUE_OPS[metric])
+
+
+def slab_bound_ms(flat_vecs, flat_sq, flat_rows, sidx, Q, qstat, metric):
+    """KV2's least time: each probed slab's live rows (flat_rows >= 0) read
+    once with their norm and id, the ids of the padding rows, the queries
+    and sidx read once, the distances written once; a multiply and an add
+    per element of each live row's dot, plus the epilogue."""
+    nq, M = sidx.shape
+    d = flat_vecs.shape[2]
+    live = int((flat_rows[sidx.long()] >= 0).sum())
+    slots = nq * M * flat_vecs.shape[1]
+    nbytes = live * (4 * d + 4) + 4 * slots + 4 * nq * (d + 1 + M) + 4 * slots
+    return _bound(nbytes, live * (2 * d + _EPILOGUE_OPS[metric]))
+
+
+def library_topk(x, k, metric, sqnorm=None, valid=None, qstat=None, col_index=None):
+    """The yardstick of KV1: torch.topk on the distances (computed once,
+    outside the timed call). Timed here, called nowhere in the port."""
+    import torch
+
+    from dgraph_tpu_torch.ops import vector_topk
+
+    if col_index is not None:
+        x, sqnorm = x[:, col_index.long()], sqnorm[col_index.long()]
+    d = vector_topk.epilogue_plain(x, sqnorm, qstat, metric)
+    if valid is not None:
+        d = d.masked_fill(~valid[None, :], float("inf"))
+    d = d.contiguous()
+    return lambda: torch.topk(d, k, dim=1, largest=False)
+
+
+def library_slabs(flat_vecs, flat_sq, flat_rows, sidx, Q, qstat, metric):
+    """The yardstick of KV2: the gather flat_vecs[sidx] and one torch.bmm
+    with the queries (the dots alone). Timed here, called nowhere in the
+    port."""
+    import torch
+
+    nq, M = sidx.shape
+    s = sidx.long()
+
+    def run():
+        sub = flat_vecs[s].reshape(nq, M * flat_vecs.shape[1], -1)
+        return torch.bmm(sub, Q[:, :, None])
+
+    return run
+
+
+def measure_topk(args, reps=7):
+    """KV1 vs plain (bitwise: distances and indices), with the kernel,
+    device, plain and library times and the bound. `args`: the keyword
+    arguments of vector_topk.topk."""
+    import torch
+
+    from dgraph_tpu_torch.ops import vector_topk
+
+    def kernel():
+        return vector_topk.topk(**args)
+
+    got = kernel()
+    want = vector_topk.topk_plain(**args)
+    torch.cuda.synchronize()
+    idx_bad = int((got[1] != want[1]).sum())
+    d_bad = int((got[0].view(torch.int32) != want[0].view(torch.int32)).sum())
+    fin = torch.isfinite(want[0])
+    err = float((got[0] - want[0])[fin].abs().max()) if bool(fin.any()) else 0.0
+    bound, bound_by = topk_bound_ms(**args)
+    return {
+        "mismatches": idx_bad + d_bad,
+        "max_abs_err": err,
+        "ms": _events_ms(kernel, reps),
+        "device_ms": kernel_device_ms(kernel, name=vector_topk.launch_counts(
+            args["x"].shape[1] if args.get("col_index") is None else args["col_index"].shape[0],
+            args["k"])),
+        "plain_ms": _events_ms(lambda: vector_topk.topk_plain(**args), max(3, reps // 2)),
+        "library_ms": _events_ms(library_topk(**args), reps),
+        "bound_ms": bound,
+        "bound_by": bound_by,
+    }
+
+
+def measure_slabs(args, reps=7):
+    """KV2 vs plain within ivf_scan.tolerance (padding rows +inf in
+    both), with the kernel, device, plain and library times and the
+    bound. `args`: the positional arguments of ivf_scan.slab_distances."""
+    import torch
+
+    from dgraph_tpu_torch.ops import ivf_scan
+
+    def kernel():
+        return ivf_scan.slab_distances(*args)
+
+    got = kernel()
+    want = ivf_scan.slab_distances_plain(*args)
+    torch.cuda.synchronize()
+    flat_vecs, flat_sq, flat_rows, sidx, Q, _, metric = args
+    nq = sidx.shape[0]
+    pad = flat_rows[sidx.long()].reshape(nq, -1) < 0
+    tol = ivf_scan.tolerance(flat_sq[sidx.long()].reshape(nq, -1), Q, metric)
+    diff = (got - want).abs()
+    bad = int((diff[~pad] > tol[~pad]).sum()) + int((~torch.isinf(got[pad])).sum())
+    bound, bound_by = slab_bound_ms(*args)
+    return {
+        "mismatches": bad,
+        "max_abs_err": float(diff[~pad].max()) if bool((~pad).any()) else 0.0,
+        "ms": _events_ms(kernel, reps),
+        "device_ms": kernel_device_ms(kernel, name="slab_scan_kernel"),
+        "plain_ms": _events_ms(lambda: ivf_scan.slab_distances_plain(*args), 3),
+        "library_ms": _events_ms(library_slabs(*args), reps),
+        "bound_ms": bound,
+        "bound_by": bound_by,
+    }
+
+
+def _fmt(r):
+    return (f"kernel {r['ms']:.6f} (device {r['device_ms']:.6f}) plain {r['plain_ms']:.6f} "
+            f"library {r['library_ms']:.6f} bound {r['bound_ms']:.6f} ({r['bound_by']}); "
+            f"max abs err {r['max_abs_err']:.3g}")
+
+
+def topk_case(rows, n, k, metric, kind="gauss", d=64, seed=0, cells=None):
+    """KV1 inputs on the card: dot rows of `rows` queries against n
+    vectors of width d ("gauss", "dup": 64 distinct vectors repeated,
+    "const": one vector), a 3% invalid mask; metric "distance" takes the
+    euclidean distances themselves. `cells`: the n columns gather from
+    that many (the centroid step), no mask."""
+    import torch
+
+    from dgraph_tpu_torch.ops import vector_topk
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = cells or n
+    V = torch.randn((w, d), generator=g, device="cuda")
+    if kind == "dup":
+        V = V[:64][torch.randint(0, 64, (w,), generator=g, device="cuda")]
+    elif kind == "const":
+        V = V[:1].expand(w, d).contiguous()
+    Q = torch.randn((rows, d), generator=g, device="cuda")
+    x = vector_topk.f32_matmul(Q, V.T).contiguous()
+    sq = (V * V).sum(1)
+    m = "euclidean" if metric == "distance" else metric
+    qs = vector_topk.query_stat(Q, m)
+    if cells:
+        col = torch.sort(torch.randint(0, cells, (n,), generator=g, device="cuda")).values
+        return {"x": x, "k": k, "metric": m, "sqnorm": sq, "qstat": qs,
+                "col_index": col.to(torch.int32)}
+    valid = torch.rand((w,), generator=g, device="cuda") >= 0.03
+    if metric == "distance":
+        x = vector_topk.epilogue_plain(x, sq, qs, m).masked_fill(~valid[None, :], float("inf"))
+        return {"x": x.contiguous(), "k": k, "metric": "distance"}
+    return {"x": x, "k": k, "metric": metric, "sqnorm": sq, "valid": valid, "qstat": qs}
+
+
+def slab_case(nq, M, d, metric, n_slabs=4096, seed=0):
+    """KV2 inputs on the card: n_slabs slabs of 128 rows with ragged tails
+    (rows past a random length are padding), M distinct slabs per query."""
+    import torch
+
+    from dgraph_tpu_torch.ops import vector_topk
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    fv = torch.randn((n_slabs, 128, d), generator=g, device="cuda")
+    lens = torch.randint(1, 129, (n_slabs,), generator=g, device="cuda")
+    pad = torch.arange(128, device="cuda")[None, :] >= lens[:, None]
+    fv[pad] = 0.0
+    rows = torch.where(pad, -1, torch.arange(n_slabs * 128, device="cuda").reshape(n_slabs, 128))
+    sidx = torch.stack([torch.randperm(n_slabs, generator=g, device="cuda")[:M]
+                        for _ in range(nq)]).to(torch.int32)
+    Q = torch.randn((nq, d), generator=g, device="cuda")
+    return (fv, (fv * fv).sum(2), rows.to(torch.int32), sidx, Q,
+            vector_topk.query_stat(Q, metric), metric)
+
+
+def vector_grid():
+    """Phase 6: KV1 == plain bitwise and KV2 == plain within tolerance
+    over a grid, with times and bounds."""
+    from dgraph_tpu_torch.ops import vector_topk
+
+    smax = vector_topk.select_max_k()
+    topk_shapes = [  # (rows, n, k, metric, kind, cells)
+        (64, 1 << 20, 10, "euclidean", "gauss", None),   # batched brute
+        (1, 1 << 17, 10, "euclidean", "gauss", None),    # one brute query
+        (1, 1 << 20, 10, "cosine", "dup", None),
+        (4, 1 << 20, 80, "dotproduct", "dup", None),
+        (8, 1 << 20, 10, "euclidean", "const", None),    # all keys tie: spill
+        (1, 18000, 527, "euclidean", "gauss", 2000),     # centroid step
+        (1, 67456, 80, "distance", "gauss", None),       # IVF final top-k
+        (4096, 1024, 80, "euclidean", "gauss", None),
+        (16, 1 << 20, 2048, "euclidean", "gauss", None),
+        (16, 1 << 20, smax, "euclidean", "gauss", None),      # select ...
+        (16, 1 << 20, smax + 1, "euclidean", "gauss", None),  # ... vs sort
+        (1, 1 << 20, 1 << 20, "euclidean", "dup", None),      # k = n
+    ]
+    for rows, n, k, metric, kind, cells in topk_shapes:
+        args = topk_case(rows, n, k, metric, kind, seed=rows + n + k, cells=cells)
+        r = measure_topk(args)
+        if r["mismatches"]:
+            raise AssertionError(f"KV1 rows={rows} n={n} k={k} {metric} {kind}: {r}")
+        regime = "select" if k <= smax else "sort"
+        print(f"    KV1 rows={rows} n={n} k={k} {metric} {kind}"
+              f"{' cells=' + str(cells) if cells else ''} ({regime}): equal; {_fmt(r)}",
+              flush=True)
+        del args
+    for nq, M, d, metric in [(1, 527, 768, "euclidean"), (8, 527, 768, "euclidean"),
+                             (1, 527, 768, "cosine"), (4, 64, 96, "dotproduct")]:
+        args = slab_case(nq, M, d, metric, seed=nq + M + d)
+        r = measure_slabs(args)
+        if r["mismatches"]:
+            raise AssertionError(f"KV2 nq={nq} M={M} d={d} {metric}: {r}")
+        print(f"    KV2 nq={nq} M={M} d={d} {metric}: within tolerance; {_fmt(r)}", flush=True)
+        del args
+
+
+# ---------------------------------------------------------------------------
+# The vector main path
+# ---------------------------------------------------------------------------
+
+VECTOR_SCHEMA = ('emb: float32vector @index(hnsw(metric:"euclidean")) .\n'
+                 'emb_small: float32vector @index(hnsw(metric:"euclidean")) .\n'
+                 "name: string @index(exact) .")
+
+
+def make_corpus(n=1_000_000, d=768, nq=256, seed=1):
+    """benchmarks/bench_suite.py's vector corpus, rewritten: a mixture of
+    256 gaussians (centers scaled by 4, unit noise) from
+    `np.random.default_rng(seed)`, and nq queries drawn near the centers."""
+    rng = np.random.default_rng(seed)
+    n_clusters = 256
+    centers = rng.standard_normal((n_clusters, d)).astype(np.float32) * 4.0
+    assign = rng.integers(0, n_clusters, n)
+    V = centers[assign] + rng.standard_normal((n, d)).astype(np.float32)
+    Qs = (centers[rng.integers(0, n_clusters, nq)] + rng.standard_normal((nq, d))).astype(np.float32)
+    return V, Qs
+
+
+def _vec_text(v) -> str:
+    """A vector as the RDF literal: each float32 printed as the shortest
+    decimal of its double, which parses back to the same float32."""
+    return "[" + ", ".join(map(repr, v.tolist())) + "]"
+
+
+def exact_topk(V, Q, k, chunk=65536):
+    """Squared euclidean top-k of each query over V, in float64 numpy:
+    (ids (nq, k) ascending by distance then id, distances (nq, k))."""
+    Q64 = Q.astype(np.float64)
+    qsq = (Q64 * Q64).sum(1)
+    best_d = np.full((len(Q), 0), np.inf)
+    best_i = np.zeros((len(Q), 0), np.int64)
+    for s in range(0, len(V), chunk):
+        Vc = V[s : s + chunk].astype(np.float64)
+        d = (Vc * Vc).sum(1)[None, :] - 2.0 * (Q64 @ Vc.T) + qsq[:, None]
+        d = np.concatenate([best_d, d], 1)
+        ids = np.concatenate([best_i, np.broadcast_to(np.arange(s, s + len(Vc)), (len(Q), len(Vc)))], 1)
+        part = np.argpartition(d, min(k, d.shape[1] - 1), axis=1)[:, :k]
+        best_d = np.take_along_axis(d, part, 1)
+        best_i = np.take_along_axis(ids, part, 1)
+    order = np.stack([np.lexsort((i, d)) for i, d in zip(best_i, best_d)])
+    return np.take_along_axis(best_i, order, 1), np.take_along_axis(best_d, order, 1)
+
+
+def near_equal(V, Q, got_rows, want_d, rtol=1e-5):
+    """Per query: do the rows a path returned have, in float64, the exact
+    top-k distances, to rtol of the distance's terms (|v|^2 + 2|v||q| +
+    |q|^2)? Rows may differ only at near-ties. Returns (all equal within
+    tolerance, count of queries whose rows equal the exact ids)."""
+    ok = True
+    for i in range(len(Q)):
+        r = np.asarray(got_rows[i], np.int64)
+        v = V[r].astype(np.float64)
+        q = Q[i].astype(np.float64)
+        d = np.sort(((v - q) ** 2).sum(1))
+        vn = np.sqrt((V[r].astype(np.float64) ** 2).sum(1)).max()
+        qn = np.sqrt((q * q).sum())
+        tol = rtol * (vn * vn + 2 * vn * qn + qn * qn)
+        if len(d) != len(want_d[i]) or np.abs(d - want_d[i]).max() > tol:
+            ok = False
+    return ok
+
+
+def cpu_twin(idx):
+    """The same index state on the host: a shallow copy whose torch
+    tensors are moved to the CPU, so its searches take the plain versions
+    of the kernels on exactly the data the card holds."""
+    import copy
+    import threading
+
+    import torch
+
+    t = copy.copy(idx)
+    t.device = torch.device("cpu")
+    t._lock = threading.RLock()
+    t._device = {k: (v.cpu() if torch.is_tensor(v) else v) for k, v in idx._device.items()}
+    if idx._ivf is not None:
+        t._ivf = dict(idx._ivf, dev={k: v.cpu() for k, v in idx._ivf["dev"].items()})
+    return t
+
+
+class _VecCapture:
+    """Keeps, per call shape, the first inputs the main path hands the KV1
+    and KV2 wrappers (references: the tensors are not written after), and
+    delegates every call unchanged."""
+
+    def __init__(self):
+        from dgraph_tpu_torch.ops import ivf_scan, vector_topk
+
+        self.mods = (vector_topk, ivf_scan)
+        self.real = (vector_topk.topk, ivf_scan.slab_distances)
+        self.topk, self.slabs = {}, {}
+
+    def _topk(self, x, k, metric, sqnorm=None, valid=None, qstat=None, col_index=None):
+        key = (tuple(x.shape), k, metric, col_index is not None)
+        self.topk.setdefault(key, dict(x=x, k=k, metric=metric, sqnorm=sqnorm,
+                                       valid=valid, qstat=qstat, col_index=col_index))
+        return self.real[0](x, k, metric, sqnorm, valid, qstat, col_index)
+
+    def _slabs(self, *args):
+        self.slabs.setdefault(tuple(args[3].shape), args)
+        return self.real[1](*args)
+
+    def __enter__(self):
+        self.mods[0].topk, self.mods[1].slab_distances = self._topk, self._slabs
+        return self
+
+    def __exit__(self, *exc):
+        self.mods[0].topk, self.mods[1].slab_distances = self.real
+
+
+def serve_vectors(device="cuda", n=1_000_000, d=768, n_named=10_000, n_small=100_000,
+                  nq=64, k=10, reps=3, min_recall=0.90, ivf_threshold=None,
+                  log=print, profile=()):
+    """Phase 7: load the corpus into a port Server on `device`, serve the
+    four vector reads, check them (exact top-k, recall, the CPU float
+    path, the kernels' launches) and time them. Returns the measurements,
+    the kernel counts of the counted run and the captured kernel inputs.
+    `ivf_threshold` overrides the index's (a rehearsal at a small n)."""
+    import os
+
+    import torch
+
+    from dgraph_tpu_torch.api.server import Server
+    from dgraph_tpu_torch.ops import ivf_scan, vector_topk
+
+    on_card = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    V, Qs = make_corpus(n, d)
+    Q = Qs[:nq]
+    log(f"corpus: {n} x {d} float32 (256 gaussians, default_rng(1)) and {nq} queries "
+        f"made in {time.perf_counter() - t0:.3f}s")
+    server = Server(device=device)
+    server.slow_query_ms = float("inf")
+    server.alter(VECTOR_SCHEMA)
+    emb, small = server.vector_indexes["emb"], server.vector_indexes["emb_small"]
+    if ivf_threshold is not None:
+        emb.ivf_threshold = small.ivf_threshold = ivf_threshold
+    uids = np.arange(1, n + 1, dtype=np.uint64)
+    t0 = time.perf_counter()
+    emb.bulk_load(uids[: n - n_named], V[: n - n_named])
+    small.bulk_load(uids[:n_small], V[:n_small])
+    for s in range(n - n_named, n, 1000):
+        lines = []
+        for i in range(s, min(s + 1000, n)):
+            lines.append(f'<{hex(i + 1)}> <name> "v{i + 1}" .')
+            lines.append(f'<{hex(i + 1)}> <emb> "{_vec_text(V[i])}"^^<float32vector> .')
+        server.new_txn().mutate_rdf(set_rdf="\n".join(lines), commit_now=True)
+    load_s = time.perf_counter() - t0
+    if len(emb) != n or len(small) != n_small:
+        raise AssertionError(f"index sizes {len(emb)}, {len(small)}")
+    log(f"loaded in {load_s:.3f}s: {n - n_named} bulk + {n_named} committed as RDF "
+        f"into emb, {n_small} into emb_small")
+
+    qtext = [_vec_text(q) for q in Q[:4]]
+    reads = {
+        "e": lambda i: f'{{ q(func: similar_to(emb, {k}, "{qtext[i]}")) {{ uid }} }}',
+        "f": lambda i: f'{{ q(func: similar_to(emb, {k}, "{qtext[i]}", ef: 64)) {{ uid }} }}',
+        "g": lambda i: f'{{ q(func: similar_to(emb_small, {k}, "{qtext[i]}")) {{ uid name }} }}',
+    }
+
+    def uids_of(raw):
+        return sorted(int(o["uid"], 16) for o in json.loads(raw)["q"])
+
+    out = {"load_s": load_s, "queries": {}}
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    # the counted run: each read once, the counts zeroed just before
+    vector_topk.LAUNCHES = vector_topk.PLAIN_CALLS = 0
+    ivf_scan.LAUNCHES = ivf_scan.PLAIN_CALLS = 0
+    answers = {}
+    t0 = time.perf_counter()
+    with _VecCapture() as cap:
+        for name, q in reads.items():
+            answers[name] = _run_query(server, q(0))
+        answers["h"] = emb.search_batch(Q, k)
+    out["first_s"] = time.perf_counter() - t0
+    out["launches"] = {"vector_topk": vector_topk.LAUNCHES, "ivf_slab_scan": ivf_scan.LAUNCHES}
+    out["plain_calls"] = {"vector_topk": vector_topk.PLAIN_CALLS,
+                          "ivf_slab_scan": ivf_scan.PLAIN_CALLS}
+    out["captured"] = (cap.topk, cap.slabs)
+    if on_card:
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if emb._ivf is None or small._ivf is not None:
+        raise AssertionError("emb must hold the IVF tier and emb_small the brute tier")
+    out["ivf"] = {key: emb._ivf[key] for key in ("m_slabs", "n_slabs")}
+    out["ivf"]["nlist"] = len(emb._ivf["centroids"])
+    log(f"first run (index upload and IVF build included) {out['first_s']:.3f}s; "
+        f"IVF {out['ivf']}")
+
+    # brute answers against an exact numpy top-k
+    t0 = time.perf_counter()
+    ex_i, ex_d = exact_topk(V, Q, k)
+    rows_h = [np.asarray(u, np.int64) - 1 for u in answers["h"]]
+    if not near_equal(V, Q, rows_h, ex_d):
+        raise AssertionError("search_batch (brute) != exact top-k beyond near-ties")
+    out["batch_exact_ids"] = int(sum(np.array_equal(r, e) for r, e in zip(rows_h, ex_i)))
+    sm_i, sm_d = exact_topk(V[:n_small], Q[:4], k)
+    for i in range(4):
+        got = uids_of(_run_query(server, reads["g"](i)))
+        if not near_equal(V, Q[i : i + 1], [np.asarray(got) - 1], sm_d[i : i + 1]):
+            raise AssertionError(f"emb_small query {i} != exact top-k beyond near-ties")
+    # IVF recall@10 over the nq queries, on the path plain similar_to takes
+    ivf_rows = [np.asarray(emb.search_one(q, k), np.int64) - 1 for q in Q]
+    recall = float(np.mean([len(set(r) & set(e)) / k for r, e in zip(ivf_rows, ex_i)]))
+    out["recall"] = recall
+    if recall < min_recall:
+        raise AssertionError(f"IVF recall@{k} {recall} < {min_recall}")
+    for name in ("e", "f"):
+        got = uids_of(answers[name])
+        want = sorted(int(u) for u in (emb.search_one(Q[0], k) if name == "e"
+                                       else emb.search(Q[0], k, ef=64)))
+        if got != want:
+            raise AssertionError(f"query ({name}): DQL answer != the index's own")
+    log(f"checks against numpy exact top-k (float64) in {time.perf_counter() - t0:.3f}s: "
+        f"brute equal outside near-ties ({out['batch_exact_ids']}/{nq} id lists identical), "
+        f"IVF recall@{k} {recall:.4f}")
+
+    # the card against the same index's CPU float path
+    if on_card:
+        t0 = time.perf_counter()
+        saved = os.environ.get("DGRAPH_TPU_VEC_QUANT")
+        os.environ["DGRAPH_TPU_VEC_QUANT"] = "0"
+        try:
+            twin, twin_small = cpu_twin(emb), cpu_twin(small)
+            same = {"batch": 0, "ivf": 0, "ef": 0, "small": 0}
+            apart = []  # (path, query) whose ids differ beyond a near-tie
+            host_b = twin.search_batch(Q, k)
+            same["batch"] = int((host_b == answers["h"]).all(1).sum())
+            host_rows = [np.asarray(u, np.int64) - 1 for u in host_b]
+            if not near_equal(V, Q, host_rows, ex_d):
+                apart.append(("batch", "all"))
+
+            def agree(path, i, a, b, Vs=V):
+                # equal ids, or ids whose exact distances differ only
+                # within the f32 tolerance (a near-tie the two GEMMs'
+                # summation orders resolve differently)
+                same[path] += int(np.array_equal(a, b))
+                ra, rb = np.asarray(a, np.int64) - 1, np.asarray(b, np.int64) - 1
+                db = np.sort(((Vs[rb] - Q[i]).astype(np.float64) ** 2).sum(1))
+                if not near_equal(Vs, Q[i : i + 1], [ra], db[None, :]):
+                    apart.append((path, i))
+
+            for i in range(8):
+                agree("ivf", i, twin.search_one(Q[i], k), emb.search_one(Q[i], k))
+                agree("ef", i, twin.search(Q[i], k, ef=64), emb.search(Q[i], k, ef=64))
+            for i in range(4):
+                agree("small", i, twin_small.search_one(Q[i], k), small.search_one(Q[i], k))
+            del twin, twin_small
+        finally:
+            if saved is None:
+                os.environ.pop("DGRAPH_TPU_VEC_QUANT", None)
+            else:
+                os.environ["DGRAPH_TPU_VEC_QUANT"] = saved
+        out["cpu_same"] = same
+        if apart:
+            raise AssertionError(f"card != CPU float path beyond near-ties: {apart}; "
+                                 f"identical id lists {same}")
+        log(f"card == CPU float path of the same index (plain kernels on the host) "
+            f"outside near-ties; identical id lists {same} of (64, 8, 8, 4), "
+            f"in {time.perf_counter() - t0:.3f}s")
+
+    # warm medians
+    runs = {name: (lambda q=q: _run_query(server, q(0))) for name, q in reads.items()}
+    runs["h"] = lambda: emb.search_batch(Q, k)
+    for name, run in runs.items():
+        ms = []
+        for _ in range(reps):
+            if on_card:
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            run()
+            if on_card:
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        out["queries"][name] = float(np.median(ms))
+    for name in profile:
+        log(f"profile of query ({name}):")
+        profile_query(server, runs[name], log=lambda m: log("  " + m))
+    return out
+
+
+def served_kernels(captured):
+    """KV1 and KV2 on every input shape the served reads gave them:
+    equal to the plain versions, with times. Returns {site: result}."""
+    topk, slabs = captured
+    res = {}
+    for (shape, k, metric, gathered), args in topk.items():
+        site = f"KV1 {shape[0]}x{shape[1]} k={k} {metric}{' gathered' if gathered else ''}"
+        res[site] = measure_topk(args)
+        if res[site]["mismatches"]:
+            raise AssertionError(f"{site}: kernel != plain on the served inputs: {res[site]}")
+    for shape, args in slabs.items():
+        site = f"KV2 nq={shape[0]} M={shape[1]} d={args[0].shape[2]}"
+        res[site] = measure_slabs(args)
+        if res[site]["mismatches"]:
+            raise AssertionError(f"{site}: kernel beyond tolerance on the served inputs")
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 
 def card_line() -> str:
@@ -605,7 +1196,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", default="", metavar="QUERIES",
-                    help="also profile these queries on the device path, e.g. bc")
+                    help="also profile these queries on the device path, e.g. bcefgh")
     opts = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -629,7 +1220,7 @@ def main(argv=None) -> int:
 
     print("[4] serving the fan-out graph on the card", flush=True)
     s = serve("cuda", log=lambda m: print("    " + m, flush=True),
-              profile=tuple(opts.profile))
+              profile=tuple(c for c in opts.profile if c in QUERIES))
     for name, r in s["queries"].items():
         print(f"    query ({name}): device path {r['device_ms']:.3f} ms, host path "
               f"{r['host_ms']:.3f} ms (warm medians), {r['bytes']} bytes; "
@@ -652,9 +1243,37 @@ def main(argv=None) -> int:
           f"plain {main['plain_ms']:.6f} library {main['library_ms']:.6f} "
           f"bound {main['bound_ms']:.6f} ({main['bound_by']}); all-of-B byte time "
           f"{all_of_b_ms(A, LA, B, LB):.6f}; rows {main['regimes']}", flush=True)
+    del s["captured"], A, LA, B, LB
     print(f"    total {time.perf_counter() - t_start:.3f}s", flush=True)
 
-    print(json.dumps({"kernels": [{
+    print("[6] vector kernels vs plain (KV1 bitwise, KV2 within tolerance), times in "
+          "ms at " + card, flush=True)
+    vector_grid()
+    print(f"    total {time.perf_counter() - t_start:.3f}s; traces that came back "
+          f"short (kernel, calls traced, calls made): {TRACE_SHORT}", flush=True)
+
+    print("[7] serving similar_to over 1000000 x 768 float32 on the card", flush=True)
+    v = serve_vectors("cuda", log=lambda m: print("    " + m, flush=True),
+                      profile=tuple(c for c in opts.profile if c in "efgh"))
+    for name, what in (("e", "similar_to(emb) IVF"), ("f", "similar_to(emb, ef: 64) IVF"),
+                       ("g", "similar_to(emb_small) brute"),
+                       ("h", "search_batch of 64 on emb, brute")):
+        print(f"    query ({name}) {what}: {v['queries'][name]:.3f} ms (warm median)", flush=True)
+    print(f"    launches in the counted run {v['launches']}; device memory peak "
+          f"{v['peak_bytes']} bytes", flush=True)
+    if min(v["launches"].values()) < 1:
+        raise AssertionError(f"a vector kernel did not launch on the main path: {v['launches']}")
+    served = served_kernels(v.pop("captured"))
+    for site, r in served.items():
+        print(f"    {site} (served inputs): equal to plain; {_fmt(r)}", flush=True)
+    print(f"    total {time.perf_counter() - t_start:.3f}s", flush=True)
+
+    # the kernels' rows: each at the served shape that moves most bytes
+    def heaviest(prefix):
+        return max((r for site, r in served.items() if site.startswith(prefix)),
+                   key=lambda r: r["bound_ms"])
+
+    rows = [{
         "name": "member_sweep",
         "route": "cuda",
         "source": "dgraph_tpu_torch/csrc/member_sweep.cu",
@@ -666,7 +1285,19 @@ def main(argv=None) -> int:
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
-    }]}))
+    }]
+    for name, src, ref, prefix in (
+        ("vector_topk", "vector_topk.cu", "dgraph_tpu/models/vector.py:194", "KV1"),
+        ("ivf_slab_scan", "ivf_slab_scan.cu", "dgraph_tpu/models/vector.py:232", "KV2"),
+    ):
+        r = heaviest(prefix)
+        rows.append({
+            "name": name, "route": "cuda", "source": f"dgraph_tpu_torch/csrc/{src}",
+            "replaces": ref, "launches": v["launches"][name],
+            **{key: r[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")},
+        })
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

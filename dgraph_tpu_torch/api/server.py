@@ -4,13 +4,16 @@ Port of `dgraph_tpu/api/server.py`, cut to the DQL read path and the
 mutations that feed it: `alter`, `new_txn().mutate_rdf(...,
 commit_now=True)` and `query`. Queries run through
 dql.parse -> query.Executor -> the streaming JSON encoder, with the set-op
-data plane on the dispatcher's torch device.
+data plane on the dispatcher's torch device. Vector predicates
+(`float32vector @index(hnsw(...))`) get a `models.vector.VectorIndex` on
+the same device, fed at commit, so `similar_to` is served as in the
+reference.
 
 Left out of this slice (see ROADMAP): ACL and audit, the serving front
 (plan cache, admission, micro-batcher, result cache, digests), CDC and
 subscriptions, group commit (commits take the serial path that
 DGRAPH_TPU_GROUP_COMMIT=0 gives in the reference), JSON mutations and
-upsert blocks, vector indexes, RDF output, and the on-disk stores.
+upsert blocks, RDF output, and the on-disk stores.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from dgraph_tpu_torch.posting.mutation import (
     DirectedEdge,
     apply_edges,
     delete_entity_attr,
+    ingest_vectors,
 )
 from dgraph_tpu_torch.posting.pl import OP_DEL, OP_SET
 from dgraph_tpu_torch.query import dispatch
@@ -97,8 +101,7 @@ class Server:
         self.kv: KV = open_kv()
         self.zero = ZeroLite()
         self.schema = State()
-        # no vector indexes in this slice; the executor and the columnar
-        # write path read the (empty) mapping
+        # predicate -> models.vector.VectorIndex on self.device
         self.vector_indexes: Dict[str, object] = {}
         self._lock = threading.Lock()
         # slow-query threshold (instance override of the registry knob)
@@ -168,8 +171,6 @@ class Server:
         self.kv.load_bytes(kv_blob)
         preds, types = parse_schema(schema_text)
         for su in preds:
-            if su.vector_specs:
-                raise NotImplementedError("vector indexes are not ported yet")
             self.schema.set(su)
         for tu in types:
             self.schema.set_type(tu)
@@ -179,6 +180,34 @@ class Server:
             self.zero.assign_uids(max_uid - self.zero._max_uid)
         self._snapshot_ts = max(self._snapshot_ts, self.zero.read_ts())
         self.mem.invalidate_prefix([b""])
+        self.rebuild_vector_indexes()
+
+    def rebuild_vector_indexes(self):
+        """Re-ingest stored vectors into the in-memory vector indexes
+        (ref posting/index.go:1354 vector-index rebuild prefixes)."""
+        ts = self.zero.read_ts()
+        read = LocalCache(self.kv, ts)
+        for pred in self.schema.predicates():
+            su = self.schema.get(pred)
+            if not su or not su.vector_specs:
+                continue
+            self._ensure_vector_index(su)
+            vidx = self.vector_indexes[pred]
+            for k, _, _ in self.kv.iterate(keys.DataPrefix(pred), ts):
+                pk = keys.parse_key(k)
+                for p in read.values(k):
+                    vidx.insert(pk.uid, p.val().value)
+
+    def _ensure_vector_index(self, su):
+        """A vector index for the predicate, on the server's device."""
+        from dgraph_tpu_torch.models.vector import VectorIndex
+
+        if su.predicate not in self.vector_indexes:
+            self.vector_indexes[su.predicate] = VectorIndex(
+                pred=su.predicate,
+                metric=su.vector_specs[0].metric,
+                device=self.device,
+            )
 
     # -- alter (ref edgraph/server.go:355) -----------------------------------
 
@@ -199,20 +228,18 @@ class Server:
                 self.kv.drop_prefix(b"")
                 self.schema = State()
                 self._bootstrap_schema()
+                self.vector_indexes.clear()
                 return
             if drop_attr:
                 self.kv.drop_prefix(keys.PredicatePrefix(drop_attr))
                 self.kv.drop_prefix(keys.SplitPredicatePrefix(drop_attr))
                 self.kv.drop_prefix(keys.SchemaKey(drop_attr))
                 self.schema.delete(drop_attr)
+                self.vector_indexes.pop(drop_attr, None)
                 return
             preds, types = parse_schema(schema_text)
             ts = self.zero.next_ts()
             for su in preds:
-                if su.vector_specs:
-                    raise NotImplementedError(
-                        "vector indexes are not ported yet"
-                    )
                 old = self.schema.get(su.predicate)
                 self.schema.set(su)
                 self.kv.put(
@@ -220,6 +247,8 @@ class Server:
                     ts,
                     _schema_line(su).encode("utf-8"),
                 )
+                if su.vector_specs:
+                    self._ensure_vector_index(su)
                 if old is not None and (
                     old.tokenizers != su.tokenizers
                 ):
@@ -297,6 +326,8 @@ class Server:
             self.mem.invalidate(ck)
         feed_stats(self.stats, txn.cache.deltas)
         colwrite.feed_col_stats(self.stats, txn)
+        # vector index ingestion at commit (factory seam)
+        ingest_vectors(self.vector_indexes, txn.cache.deltas)
         METRICS.inc(
             "mutation_edges_total",
             sum(len(p) for p in txn.cache.deltas.values())

@@ -4,7 +4,10 @@ This system has no weights; what a deployment carries is its store. A
 `dgraph_tpu` engine's in-memory store dumps to plain bytes
 (`MemKV.dump_bytes()`), and with the schema text and Zero's lease
 watermarks that is all the port needs to answer on exactly the same data.
-Nothing of the reference is imported: the inputs are bytes and ints.
+Vector predicates come across too: their indexes are rebuilt from the
+carried store on the server's device, so `similar_to` answers as on the
+source engine. Nothing of the reference is imported: the inputs are bytes
+and ints.
 """
 
 from __future__ import annotations

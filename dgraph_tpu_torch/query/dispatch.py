@@ -28,6 +28,7 @@ import torch
 
 from dgraph_tpu_torch.codec import uidpack
 from dgraph_tpu_torch.codec.uidpack import join_segments, split_segments
+from dgraph_tpu_torch.device import resolve_device
 from dgraph_tpu_torch.ops import member_sweep, packed_setops, setops
 from dgraph_tpu_torch.x import config
 
@@ -84,19 +85,6 @@ def _np_op(op: str, a: np.ndarray, b: np.ndarray) -> np.ndarray:
     if op == "union":
         return native.union(np.asarray(a, np.uint64), np.asarray(b, np.uint64))
     raise ValueError(op)
-
-
-def resolve_device(device) -> torch.device:
-    """A torch device for the dispatcher; CUDA must be present when asked."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device='cuda' asked for, but torch.cuda.is_available() is "
-            "False; pass device='cpu' to run on the host"
-        )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
 
 
 class DeviceCache:

@@ -5,7 +5,8 @@
   lazily or not (an AST walk).
 - With both names blocked on `sys.meta_path`, a subprocess imports the
   port, alters a schema, commits a mutation and answers a query on the
-  CPU.
+  CPU; then it alters an `hnsw` vector predicate, commits three vectors
+  and answers a `similar_to`.
 - Every module the port copied from the reference equals it but for the
   rebinding of `dgraph_tpu` to `dgraph_tpu_torch` and for citations of
   the upstream Go sources, written `dgraph/<path>` in the port; the
@@ -31,9 +32,12 @@ PORTED = {
     "__init__.py",
     "api/server.py",
     "carry.py",
+    "device.py",
     "ops/cuda_build.py",
+    "ops/ivf_scan.py",
     "ops/member_sweep.py",
     "ops/setops.py",
+    "ops/vector_topk.py",
     "query/dispatch.py",
     # package inits that do not re-export modules the slice leaves out
     "serving/__init__.py",
@@ -41,6 +45,17 @@ PORTED = {
 }
 # copies with a repair: (module, top-level function or Class.method)
 REPAIRED = {
+    # the float paths' device programs -> torch.matmul + KV1 / KV2 on the
+    # index's own torch device; the quantized engine, k-means and
+    # assignment stay verbatim
+    "models/vector.py": [
+        "_cpu_backend", "_jit_brute", "_jit_brute_batch", "_ivf_probe",
+        "_jit_ivf", "_jit_ivf_batch", "_distances", "_distances_batch",
+        "VectorIndex.__init__", "VectorIndex._use_quant",
+        "VectorIndex._sync_device", "VectorIndex.search",
+        "VectorIndex.search_batch", "VectorIndex._train_ivf",
+        "VectorIndex._ivf_search", "VectorIndex._ivf_search_batch",
+    ],
     "query/subgraph.py": ["Executor._order_uids_topk"],  # jax.lax.top_k -> torch
     "storage/kv.py": ["open_kv"],  # the in-memory store only
 }
@@ -112,6 +127,15 @@ s.new_txn().mutate_rdf(
 )
 out = s.query('{ q(func: eq(name, "a")) { friend @filter(eq(name, "b")) { uid } } }')
 print(json.dumps(out["data"]))
+s.alter('emb: float32vector @index(hnsw(metric:"euclidean")) .')
+s.new_txn().mutate_rdf(
+    set_rdf='<0x2> <emb> "[1.0, 0.0]"^^<float32vector> .\n'
+    '<0x3> <emb> "[0.9, 0.2]"^^<float32vector> .\n'
+    '<0x100000004> <emb> "[-1.0, 0.5]"^^<float32vector> .',
+    commit_now=True,
+)
+out = s.query('{ v(func: similar_to(emb, 2, "[1.0, 0.1]")) { name } }')
+print(json.dumps(out["data"]))
 print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "dgraph_tpu")))
 """
 
@@ -124,10 +148,11 @@ def test_runs_with_jax_and_reference_blocked():
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
     )
     assert got.returncode == 0, got.stderr[-3000:]
-    data, mods = got.stdout.strip().splitlines()[-2:]
+    data, similar, mods = got.stdout.strip().splitlines()[-3:]
     assert json.loads(data) == {
         "q": [{"friend": [{"uid": "0x3"}, {"uid": "0x100000004"}]}]
     }
+    assert json.loads(similar) == {"v": [{"name": "a"}, {"name": "b"}]}
     assert mods == "[]"
 
 
