@@ -24,25 +24,33 @@ Phases, each of which fails the run when it fails:
   5. K1 once more, on the inputs the main path gave it, after checking
      that they meet its precondition (rows sorted as uint32);
   6. the vector kernels against their plain PyTorch versions over a grid:
-     KV1 (`vector_topk`, distance epilogue + masked top-k) bit for bit,
-     KV2 (`ivf_slab_scan`) within `ivf_scan.tolerance`, with kernel,
-     device, plain and library times and the bound;
+     KV1 (`vector_topk`, distance epilogue + masked top-k) bit for bit on
+     two calls back to back (its tickets and histograms reset
+     themselves), at the served shapes, on both sides of its one-pass /
+     radix switch, on tied rows, NaN, +-inf and -0.0, 65,535 rows and
+     k = n; KV2 (`ivf_slab_scan`) within `ivf_scan.tolerance`; with
+     kernel, device, plain and library times and the bound;
   7. the vector main path: a `Server(device="cuda")` serves `similar_to`
      over 1,000,000 x 768 float32 vectors (the mixture-of-gaussians corpus
      of benchmarks/bench_suite.py, rewritten here), 990,000 bulk-loaded
      into the predicate's index and the last 10,000 committed as RDF
      with a name, plus the first 100,000 as `emb_small` (brute tier).
-     Four reads: plain `similar_to` (IVF tier), the same with `ef: 64`,
-     `similar_to` on `emb_small`, and `search_batch` of 64 queries (brute
-     tier). Brute answers must equal an exact numpy top-k outside
-     near-ties, IVF recall@10 over 64 queries must reach 0.90, the card
-     must answer as the same index's CPU float path, KV1 and KV2 must have
-     launched, and both are held against their plain versions on the
-     inputs the served reads gave them.
+     Five reads: plain `similar_to` (IVF tier), the same with `ef: 64`,
+     `similar_to` on `emb_small`, `search_batch` of 64 queries (brute
+     tier), and (i) `similar_to` on `emb_small` as a filter of 20 uids far
+     from the query, whose pool widens 4x a step up to the live set
+     (KV1 at k = 40 ... 100,000, both regimes). Brute answers must equal
+     an exact numpy top-k outside near-ties ((i): over its allowed set),
+     IVF recall@10 over 64 queries must reach 0.90, the card must answer
+     as the same index's CPU float path, KV1 and KV2 must have launched,
+     and both are held against their plain versions on the inputs the
+     served reads gave them.
 
-`--profile` adds, for the named queries (a-d of phase 4, e-h of phase
+`--profile` adds, for the named queries (a-d of phase 4, e-i of phase
 7), where one warm run's time goes: host functions by own time
-(cProfile) and the card's busy share (torch.profiler).
+(cProfile) and the card's busy share (torch.profiler). `--crossover`
+runs phases 1-2 and then, in place of the others, measures where KV1's
+radix regime starts to beat its one-pass regime (`topk_crossover`).
 
 The second-to-last lines are the kernel table (JSON) and the card; the
 last line is `{"ok": true, "device": {...}}`. Without a CUDA card the
@@ -503,12 +511,14 @@ def measure_sweep(A, LA, B, LB, reps=7):
     want = member_sweep.membership_batch_plain(A, LA, B, LB)
     torch.cuda.synchronize()
     err = int((got != want).sum().item())
+    diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
     A64, Bkey = _to_i64(A), sorted_keys(B, LB)
     lib = library_membership(A64, LA, Bkey, LB)
     lib_agrees = bool(torch.equal(lib, want))
     bound, bound_by = sweep_bound_ms(A, LA, B, LB)
     return {
         "mismatches": err,
+        "max_abs_err": float(diff.max()) if diff.numel() else 0.0,
         "library_agrees": lib_agrees,
         "ms": _events_ms(lambda: member_sweep.membership_batch(A, LA, B, LB), reps),
         "device_ms": kernel_device_ms(lambda: member_sweep.membership_batch(A, LA, B, LB)),
@@ -711,9 +721,9 @@ def library_slabs(flat_vecs, flat_sq, flat_rows, sidx, Q, qstat, metric):
 
 
 def measure_topk(args, reps=7):
-    """KV1 vs plain (bitwise: distances and indices), with the kernel,
-    device, plain and library times and the bound. `args`: the keyword
-    arguments of vector_topk.topk."""
+    """KV1 vs plain (bitwise: distances and indices, on two calls back
+    to back), with the kernel, device, plain and library times and the
+    bound. `args`: the keyword arguments of vector_topk.topk."""
     import torch
 
     from dgraph_tpu_torch.ops import vector_topk
@@ -721,11 +731,15 @@ def measure_topk(args, reps=7):
     def kernel():
         return vector_topk.topk(**args)
 
+    # two calls back to back, nothing between them: the kernel's state
+    # (tickets, histograms) must come back to zero by itself
     got = kernel()
+    again = kernel()
     want = vector_topk.topk_plain(**args)
     torch.cuda.synchronize()
-    idx_bad = int((got[1] != want[1]).sum())
-    d_bad = int((got[0].view(torch.int32) != want[0].view(torch.int32)).sum())
+    idx_bad = int((got[1] != want[1]).sum()) + int((again[1] != want[1]).sum())
+    d_bad = int((got[0].view(torch.int32) != want[0].view(torch.int32)).sum()) + int(
+        (again[0].view(torch.int32) != want[0].view(torch.int32)).sum())
     fin = torch.isfinite(want[0])
     err = float((got[0] - want[0])[fin].abs().max()) if bool(fin.any()) else 0.0
     bound, bound_by = topk_bound_ms(**args)
@@ -734,6 +748,7 @@ def measure_topk(args, reps=7):
         "max_abs_err": err,
         "ms": _events_ms(kernel, reps),
         "device_ms": kernel_device_ms(kernel, name=vector_topk.launch_counts(
+            args["x"].shape[0],
             args["x"].shape[1] if args.get("col_index") is None else args["col_index"].shape[0],
             args["k"])),
         "plain_ms": _events_ms(lambda: vector_topk.topk_plain(**args), max(3, reps // 2)),
@@ -785,9 +800,10 @@ def _fmt(r):
 def topk_case(rows, n, k, metric, kind="gauss", d=64, seed=0, cells=None):
     """KV1 inputs on the card: dot rows of `rows` queries against n
     vectors of width d ("gauss", "dup": 64 distinct vectors repeated,
-    "const": one vector), a 3% invalid mask; metric "distance" takes the
-    euclidean distances themselves. `cells`: the n columns gather from
-    that many (the centroid step), no mask."""
+    "const": one vector, "special": gauss with 30% of the ready distances
+    replaced by NaN, +-inf, -0.0 and 0.0), a 3% invalid mask; metric
+    "distance" takes the euclidean distances themselves. `cells`: the n
+    columns gather from that many (the centroid step), no mask."""
     import torch
 
     from dgraph_tpu_torch.ops import vector_topk
@@ -811,6 +827,11 @@ def topk_case(rows, n, k, metric, kind="gauss", d=64, seed=0, cells=None):
     valid = torch.rand((w,), generator=g, device="cuda") >= 0.03
     if metric == "distance":
         x = vector_topk.epilogue_plain(x, sq, qs, m).masked_fill(~valid[None, :], float("inf"))
+        if kind == "special":
+            vals = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0, 0.0],
+                                device="cuda")
+            pick = torch.randint(0, 5, x.shape, generator=g, device="cuda")
+            x = torch.where(torch.rand(x.shape, generator=g, device="cuda") < 0.3, vals[pick], x)
         return {"x": x.contiguous(), "k": k, "metric": "distance"}
     return {"x": x, "k": k, "metric": metric, "sqnorm": sq, "valid": valid, "qstat": qs}
 
@@ -835,24 +856,47 @@ def slab_case(nq, M, d, metric, n_slabs=4096, seed=0):
             vector_topk.query_stat(Q, metric), metric)
 
 
+def onepass_limit(rows, n):
+    """The largest k that KV1 takes in one pass on rows x n (its switch is
+    monotone in k), or 0."""
+    from dgraph_tpu_torch.ops import vector_topk
+
+    lo, hi = 0, min(n, vector_topk.onepass_max_k())
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if vector_topk.onepass(rows, n, mid):
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
 def vector_grid():
     """Phase 6: KV1 == plain bitwise and KV2 == plain within tolerance
     over a grid, with times and bounds."""
     from dgraph_tpu_torch.ops import vector_topk
 
-    smax = vector_topk.select_max_k()
     topk_shapes = [  # (rows, n, k, metric, kind, cells)
         (64, 1 << 20, 10, "euclidean", "gauss", None),   # batched brute
         (1, 1 << 17, 10, "euclidean", "gauss", None),    # one brute query
-        (1, 1 << 20, 10, "cosine", "dup", None),
+        (1, 1 << 20, 10, "cosine", "dup", None),         # one row, many CTAs
         (4, 1 << 20, 80, "dotproduct", "dup", None),
-        (8, 1 << 20, 10, "euclidean", "const", None),    # all keys tie: spill
+        (8, 1 << 20, 10, "euclidean", "const", None),    # all keys tie
+        (8, 1 << 20, 2049, "euclidean", "const", None),
         (1, 18000, 527, "euclidean", "gauss", 2000),     # centroid step
         (1, 67456, 80, "distance", "gauss", None),       # IVF final top-k
+        (4, 1 << 20, 10, "distance", "special", None),   # NaN, +-inf, -0.0
+        (4, 1 << 20, 2049, "distance", "special", None),
         (4096, 1024, 80, "euclidean", "gauss", None),
-        (16, 1 << 20, 2048, "euclidean", "gauss", None),
-        (16, 1 << 20, smax, "euclidean", "gauss", None),      # select ...
-        (16, 1 << 20, smax + 1, "euclidean", "gauss", None),  # ... vs sort
+        (65535, 64, 10, "euclidean", "gauss", None),     # the most rows
+    ]
+    for rows, n in ((1, 1 << 17), (1, 1 << 20), (16, 1 << 20), (64, 1 << 20)):
+        k = onepass_limit(rows, n)  # the one-pass limit and one above it
+        topk_shapes += [(rows, n, k, "euclidean", "gauss", None),
+                        (rows, n, k + 1, "euclidean", "gauss", None)]
+    topk_shapes += [
+        (16, 1 << 20, 16384, "euclidean", "gauss", None),
+        (16, 1 << 20, 16385, "euclidean", "gauss", None),
         (1, 1 << 20, 1 << 20, "euclidean", "dup", None),      # k = n
     ]
     for rows, n, k, metric, kind, cells in topk_shapes:
@@ -860,9 +904,9 @@ def vector_grid():
         r = measure_topk(args)
         if r["mismatches"]:
             raise AssertionError(f"KV1 rows={rows} n={n} k={k} {metric} {kind}: {r}")
-        regime = "select" if k <= smax else "sort"
+        regime = "one pass" if vector_topk.onepass(rows, n, k) else "radix"
         print(f"    KV1 rows={rows} n={n} k={k} {metric} {kind}"
-              f"{' cells=' + str(cells) if cells else ''} ({regime}): equal; {_fmt(r)}",
+              f"{' cells=' + str(cells) if cells else ''} ({regime}): equal twice; {_fmt(r)}",
               flush=True)
         del args
     for nq, M, d, metric in [(1, 527, 768, "euclidean"), (8, 527, 768, "euclidean"),
@@ -991,12 +1035,14 @@ class _VecCapture:
 
 def serve_vectors(device="cuda", n=1_000_000, d=768, n_named=10_000, n_small=100_000,
                   nq=64, k=10, reps=3, min_recall=0.90, ivf_threshold=None,
-                  log=print, profile=()):
+                  n_allow=20, log=print, profile=()):
     """Phase 7: load the corpus into a port Server on `device`, serve the
-    four vector reads, check them (exact top-k, recall, the CPU float
+    five vector reads, check them (exact top-k, recall, the CPU float
     path, the kernels' launches) and time them. Returns the measurements,
     the kernel counts of the counted run and the captured kernel inputs.
-    `ivf_threshold` overrides the index's (a rehearsal at a small n)."""
+    `ivf_threshold` overrides the index's (a rehearsal at a small n).
+    Read (i) filters `emb_small` to the `n_allow` uids farthest from the
+    query, so its pool widens 4x a step up to the whole live set."""
     import os
 
     import torch
@@ -1033,10 +1079,17 @@ def serve_vectors(device="cuda", n=1_000_000, d=768, n_named=10_000, n_small=100
         f"into emb, {n_small} into emb_small")
 
     qtext = [_vec_text(q) for q in Q[:4]]
+    # (i): the allow-list lies far from query 0, so no pool short of the
+    # live set holds k of it
+    d_small = ((V[:n_small].astype(np.float64) - Q[0].astype(np.float64)) ** 2).sum(1)
+    allow = np.sort(np.argsort(d_small, kind="stable")[-n_allow:] + 1).astype(np.uint64)
+    allow_q = (f'{{ q(func: uid({", ".join(hex(int(u)) for u in allow)})) '
+               f'@filter(similar_to(emb_small, {k}, "{qtext[0]}")) {{ uid }} }}')
     reads = {
         "e": lambda i: f'{{ q(func: similar_to(emb, {k}, "{qtext[i]}")) {{ uid }} }}',
         "f": lambda i: f'{{ q(func: similar_to(emb, {k}, "{qtext[i]}", ef: 64)) {{ uid }} }}',
         "g": lambda i: f'{{ q(func: similar_to(emb_small, {k}, "{qtext[i]}")) {{ uid name }} }}',
+        "i": lambda i: allow_q,  # query 0 only
     }
 
     def uids_of(raw):
@@ -1050,16 +1103,35 @@ def serve_vectors(device="cuda", n=1_000_000, d=768, n_named=10_000, n_small=100
     vector_topk.LAUNCHES = vector_topk.PLAIN_CALLS = 0
     ivf_scan.LAUNCHES = ivf_scan.PLAIN_CALLS = 0
     answers = {}
+    per_read = {}
+
+    def calls():
+        return vector_topk.LAUNCHES + vector_topk.PLAIN_CALLS
+
     t0 = time.perf_counter()
     with _VecCapture() as cap:
         for name, q in reads.items():
+            c0 = calls()
             answers[name] = _run_query(server, q(0))
+            per_read[name] = calls() - c0
+        c0 = calls()
         answers["h"] = emb.search_batch(Q, k)
+        per_read["h"] = calls() - c0
     out["first_s"] = time.perf_counter() - t0
+    out["topk_per_read"] = per_read
     out["launches"] = {"vector_topk": vector_topk.LAUNCHES, "ivf_slab_scan": ivf_scan.LAUNCHES}
     out["plain_calls"] = {"vector_topk": vector_topk.PLAIN_CALLS,
                           "ivf_slab_scan": ivf_scan.PLAIN_CALLS}
     out["captured"] = (cap.topk, cap.slabs)
+    # (i) widened k = 4 * 10, 160, ... up to the live set: one KV1 call
+    # a step, on one row of emb_small's padded rows
+    small_ks = sorted(kk for (shape, kk, metric, gathered) in cap.topk
+                      if shape[0] == 1 and metric != "distance" and not gathered
+                      and kk >= 4 * k)
+    out["filtered_ks"] = small_ks
+    if not small_ks or small_ks[-1] != n_small or per_read["i"] != len(small_ks):
+        raise AssertionError(f"read (i) did not widen to the live set: k {small_ks}, "
+                             f"{per_read['i']} top-k calls")
     if on_card:
         out["peak_bytes"] = torch.cuda.max_memory_allocated()
     if emb._ivf is None or small._ivf is not None:
@@ -1093,9 +1165,18 @@ def serve_vectors(device="cuda", n=1_000_000, d=768, n_named=10_000, n_small=100
                                        else emb.search(Q[0], k, ef=64)))
         if got != want:
             raise AssertionError(f"query ({name}): DQL answer != the index's own")
+    # (i): the exact top-k over the allowed set
+    got_i = uids_of(answers["i"])
+    order = np.argsort(d_small[allow.astype(np.int64) - 1], kind="stable")[:k]
+    want_d = np.sort(d_small[allow.astype(np.int64) - 1])[:k]
+    if len(got_i) != k or not set(got_i) <= set(allow.tolist()) or not near_equal(
+            V, Q[:1], [np.asarray(got_i, np.int64) - 1], want_d[None, :]):
+        raise AssertionError(f"query (i) {got_i} != exact top-{k} of the allowed set "
+                             f"{sorted(allow[order].tolist())}")
     log(f"checks against numpy exact top-k (float64) in {time.perf_counter() - t0:.3f}s: "
         f"brute equal outside near-ties ({out['batch_exact_ids']}/{nq} id lists identical), "
-        f"IVF recall@{k} {recall:.4f}")
+        f"IVF recall@{k} {recall:.4f}; (i) equals the exact top-{k} of its {n_allow} "
+        f"allowed uids after KV1 at k {small_ks}")
 
     # the card against the same index's CPU float path
     if on_card:
@@ -1104,7 +1185,7 @@ def serve_vectors(device="cuda", n=1_000_000, d=768, n_named=10_000, n_small=100
         os.environ["DGRAPH_TPU_VEC_QUANT"] = "0"
         try:
             twin, twin_small = cpu_twin(emb), cpu_twin(small)
-            same = {"batch": 0, "ivf": 0, "ef": 0, "small": 0}
+            same = {"batch": 0, "ivf": 0, "ef": 0, "small": 0, "filtered": 0}
             apart = []  # (path, query) whose ids differ beyond a near-tie
             host_b = twin.search_batch(Q, k)
             same["batch"] = int((host_b == answers["h"]).all(1).sum())
@@ -1127,6 +1208,8 @@ def serve_vectors(device="cuda", n=1_000_000, d=768, n_named=10_000, n_small=100
                 agree("ef", i, twin.search(Q[i], k, ef=64), emb.search(Q[i], k, ef=64))
             for i in range(4):
                 agree("small", i, twin_small.search_one(Q[i], k), small.search_one(Q[i], k))
+            agree("filtered", 0, twin_small.search(Q[0], k, allowed=allow),
+                  small.search(Q[0], k, allowed=allow))
             del twin, twin_small
         finally:
             if saved is None:
@@ -1138,7 +1221,7 @@ def serve_vectors(device="cuda", n=1_000_000, d=768, n_named=10_000, n_small=100
             raise AssertionError(f"card != CPU float path beyond near-ties: {apart}; "
                                  f"identical id lists {same}")
         log(f"card == CPU float path of the same index (plain kernels on the host) "
-            f"outside near-ties; identical id lists {same} of (64, 8, 8, 4), "
+            f"outside near-ties; identical id lists {same} of (64, 8, 8, 4, 1), "
             f"in {time.perf_counter() - t0:.3f}s")
 
     # warm medians
@@ -1180,6 +1263,104 @@ def served_kernels(captured):
 
 
 # ---------------------------------------------------------------------------
+# KV1's regime switch, measured (--crossover)
+# ---------------------------------------------------------------------------
+
+# the switch's constants in vector_topk.cu, and their values in the copies
+# that take every k in one pass (as far as it can hold) or every k by radix
+TOPK_RULE = ("constexpr int kOnePassMaxK = ", "constexpr int kMergeBudget = ")
+TOPK_VARIANTS = {"onepass": (2048, 1 << 30), "radix": (0, 0)}
+CROSSOVER_KS = (10, 80, 128, 256, 530, 1024, 1536, 2048)
+CROSSOVER_SHAPES = [  # (rows, n, metric, cells)
+    (1, 1 << 17, "euclidean", None),  # a brute similar_to on 100k vectors
+    (1, 67456, "distance", None),     # the IVF top-npool
+    (1, 17103, "euclidean", 2000),    # the IVF centroid step
+    (1, 1 << 20, "euclidean", None),
+    (16, 1 << 20, "euclidean", None),
+    (64, 1 << 20, "euclidean", None),
+]
+
+
+def build_topk_variant(name, max_k, budget):
+    """vector_topk.cu with the switch's constants replaced, built by nvcc
+    into the port's build directory; returns the bound library."""
+    import ctypes
+    import os
+
+    from dgraph_tpu_torch.ops import cuda_build, vector_topk
+
+    src = open(os.path.join(cuda_build.CSRC, "vector_topk.cu")).read()
+    for key, value in zip(TOPK_RULE, (max_k, budget)):
+        at = src.index(key) + len(key)
+        src = src[:at] + str(value) + src[src.index(";", at):]
+    out = os.path.join(cuda_build.BUILD_DIR, "crossover")
+    os.makedirs(out, exist_ok=True)
+    cu, so = os.path.join(out, f"topk_{name}.cu"), os.path.join(out, f"topk_{name}.so")
+    with open(cu, "w") as f:
+        f.write(src)
+    subprocess.run([cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", so, cu],
+                   check=True, capture_output=True, text=True)
+    return vector_topk.bind(ctypes.CDLL(so))
+
+
+def topk_crossover():
+    """Times the built KV1 against a copy that takes every k in one pass
+    and one that takes every k by radix, on the same rows (each answer
+    equal to topk_plain bit for bit), by device time from the card's
+    trace. Prints one line per point, with the regime the built rule
+    takes, and per shape the least k from which radix is no slower at
+    every larger k of the grid."""
+    import ctypes
+
+    import torch
+
+    from dgraph_tpu_torch.ops import vector_topk
+
+    libs = {"rule": vector_topk._kernel()}
+    libs.update({k: build_topk_variant(k, *v) for k, v in TOPK_VARIANTS.items()})
+
+    def plan(lib, rows, n, k):
+        counts = (ctypes.c_int * 16)()
+        m = lib.vector_topk_launch_counts(rows, n, k, counts)
+        return {lib.vector_topk_kernel_name(i).decode(): counts[i]
+                for i in range(m) if counts[i]}
+
+    def run(lib, args):
+        saved = vector_topk._lib
+        vector_topk._lib = lib
+        vector_topk._sizes.cache_clear()
+        try:
+            return vector_topk.topk(**args)
+        finally:
+            vector_topk._lib = saved
+            vector_topk._sizes.cache_clear()
+
+    for rows, n, metric, cells in CROSSOVER_SHAPES:
+        radix_from = None
+        for k in CROSSOVER_KS:
+            args = topk_case(rows, n, k, metric, "gauss", seed=rows + n + k, cells=cells)
+            want = vector_topk.topk_plain(**args)
+            ms = {}
+            for name, lib in libs.items():
+                got = run(lib, args)
+                if not (torch.equal(got[1], want[1]) and torch.equal(
+                        got[0].view(torch.int32), want[0].view(torch.int32))):
+                    raise AssertionError(f"rows={rows} n={n} k={k}: {name} build != plain")
+                ms[name] = kernel_device_ms(lambda lib=lib: run(lib, args), 10,
+                                            name=plan(lib, rows, n, k))
+            if ms["radix"] > ms["onepass"]:
+                radix_from = None
+            elif radix_from is None:
+                radix_from = k
+            rule = "one pass" if vector_topk.onepass(rows, n, k) else "radix"
+            print(f"    rows={rows} n={n} k={k} {metric}: one pass {ms['onepass']:.6f} "
+                  f"radix {ms['radix']:.6f} rule {ms['rule']:.6f} ({rule})", flush=True)
+            del args, want
+        print(f"    rows={rows} n={n}: radix no slower from k = "
+              f"{radix_from if radix_from else 'none in the grid'} on", flush=True)
+
+
+# ---------------------------------------------------------------------------
 
 
 def card_line() -> str:
@@ -1196,7 +1377,10 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", default="", metavar="QUERIES",
-                    help="also profile these queries on the device path, e.g. bcefgh")
+                    help="also profile these queries on the device path, e.g. bcefghi")
+    ap.add_argument("--crossover", action="store_true",
+                    help="after the build, time KV1's two regimes against its switch, "
+                         "and stop")
     opts = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1213,6 +1397,11 @@ def main(argv=None) -> int:
     secs = cuda_build.build()
     print(f"[2] built {sorted(secs)} in {time.perf_counter() - t0:.3f}s "
           f"(per source {secs})", flush=True)
+    if opts.crossover:
+        print("[crossover] KV1 device times in ms at " + card + "; 'rule' is the built "
+              "kernel", flush=True)
+        topk_crossover()
+        return 0
 
     print("[3] member sweep vs plain (exact), times in ms at " + card, flush=True)
     sweep_edge_cases()
@@ -1254,12 +1443,14 @@ def main(argv=None) -> int:
 
     print("[7] serving similar_to over 1000000 x 768 float32 on the card", flush=True)
     v = serve_vectors("cuda", log=lambda m: print("    " + m, flush=True),
-                      profile=tuple(c for c in opts.profile if c in "efgh"))
+                      profile=tuple(c for c in opts.profile if c in "efghi"))
     for name, what in (("e", "similar_to(emb) IVF"), ("f", "similar_to(emb, ef: 64) IVF"),
                        ("g", "similar_to(emb_small) brute"),
-                       ("h", "search_batch of 64 on emb, brute")):
+                       ("h", "search_batch of 64 on emb, brute"),
+                       ("i", "similar_to(emb_small) filtered to far uids, brute, widened")):
         print(f"    query ({name}) {what}: {v['queries'][name]:.3f} ms (warm median)", flush=True)
-    print(f"    launches in the counted run {v['launches']}; device memory peak "
+    print(f"    launches in the counted run {v['launches']}, KV1 per read "
+          f"{v['topk_per_read']}, (i) at k {v['filtered_ks']}; device memory peak "
           f"{v['peak_bytes']} bytes", flush=True)
     if min(v["launches"].values()) < 1:
         raise AssertionError(f"a vector kernel did not launch on the main path: {v['launches']}")
@@ -1279,7 +1470,7 @@ def main(argv=None) -> int:
         "source": "dgraph_tpu_torch/csrc/member_sweep.cu",
         "replaces": "dgraph_tpu/ops/pallas_setops.py:53",
         "launches": s["launches"],
-        "max_abs_err": main["mismatches"],
+        "max_abs_err": main["max_abs_err"],
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],

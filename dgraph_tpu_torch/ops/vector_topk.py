@@ -5,10 +5,11 @@ Port of the device program the reference builds in
 `lax.top_k` steps of `_ivf_probe`): from the rows of a dot product (or
 of ready distances) to the k smallest distances of each row, ascending,
 with their columns. The kernel is `csrc/vector_topk.cu`, written by hand
-for Hopper; its head says what bounds it and how its two regimes (a
-radix select for k <= `select_max_k()`, a bitonic sort of the row above)
-deal with that. `topk_plain` beside it is the same function in plain
-PyTorch, taken for tensors on the CPU.
+for Hopper; its head says what bounds it and how its two regimes (one
+pass over the row with a running threshold for small k, a radix select
+spread over the row's CTAs then a sort of the k keys for the others;
+`onepass(rows, n, k)` says which a call takes) deal with that. `topk_plain` beside it is the same function in
+plain PyTorch, taken for tensors on the CPU.
 
 Order is `lax.top_k(-d, k)`'s: the IEEE total order on d (-0.0 before
 0.0, NaN after +inf), ties to the lower column. `torch.topk` leaves the
@@ -24,13 +25,14 @@ d = -dot, and "distance" (d = x, for rows that are distances already).
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import torch
 
 METRIC_ID = {"euclidean": 0, "cosine": 1, "dotproduct": 2, "distance": 3}
-# columns per row the kernel takes (its sort pads a row to a power of two
-# that fits an int32); the .cu refuses more as well
+# columns per row the kernel takes (a column index fits 30 bits of its
+# keys); the .cu refuses more as well
 MAX_N = 1 << 30
 
 # kernel launches, for showing that a path went through the kernel; the
@@ -39,25 +41,30 @@ LAUNCHES = 0
 PLAIN_CALLS = 0
 
 _lib = None
+# the kernel's persistent state per (device, stream): tickets, histograms
+# and counters that every launch leaves at zero, so they are zeroed once,
+# when allocated (and dropped after a failed launch)
+_STATE = {}
+_STATE_LOCK = threading.Lock()
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a built vector_topk library."""
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.vector_topk_launch.restype = i
-    lib.vector_topk_launch.argtypes = [p, ctypes.c_int64] + [p] * 4 + [i] * 4 + [
-        p
-    ] * 5
-    lib.vector_topk_select_max_k.restype = i
-    lib.vector_topk_select_max_k.argtypes = []
-    lib.vector_topk_scratch_per_row.restype = ctypes.c_int64
-    lib.vector_topk_scratch_per_row.argtypes = [i]
-    lib.vector_topk_aux_per_row.restype = i
-    lib.vector_topk_aux_per_row.argtypes = []
+    lib.vector_topk_launch.argtypes = [p, i64] + [p] * 4 + [i] * 4 + [p] * 5
+    lib.vector_topk_onepass_max_k.restype = i
+    lib.vector_topk_onepass_max_k.argtypes = []
+    lib.vector_topk_scratch_keys.restype = i64
+    lib.vector_topk_scratch_keys.argtypes = [i, i, i]
+    lib.vector_topk_state_words.restype = i64
+    lib.vector_topk_state_words.argtypes = [i, i, i]
+    lib.vector_topk_onepass.restype = i
+    lib.vector_topk_onepass.argtypes = [i, i, i]
     lib.vector_topk_max_n.restype = i
     lib.vector_topk_max_n.argtypes = []
     lib.vector_topk_launch_counts.restype = i
-    lib.vector_topk_launch_counts.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.vector_topk_launch_counts.argtypes = [i, i, i, ctypes.POINTER(i)]
     lib.vector_topk_kernel_name.restype = ctypes.c_char_p
     lib.vector_topk_kernel_name.argtypes = [i]
     return lib
@@ -72,21 +79,47 @@ def _kernel() -> ctypes.CDLL:
     return _lib
 
 
-def select_max_k() -> int:
-    """The largest k the kernel takes by radix select; a larger k sorts
-    the whole row. Builds the kernel if needed."""
-    return int(_kernel().vector_topk_select_max_k())
+@functools.lru_cache(maxsize=None)
+def onepass_max_k() -> int:
+    """The largest k the kernel ever takes in one pass over the row; a
+    larger k goes by radix select and a sort of the k keys. Builds the
+    kernel if needed."""
+    return int(_kernel().vector_topk_onepass_max_k())
 
 
-def launch_counts(n: int, k: int) -> dict:
-    """{kernel name: launches} of one `topk` call on rows of n columns:
-    the plan the kernel's own launcher runs, read from the library.
-    Builds the kernel if needed."""
+def onepass(rows: int, n: int, k: int) -> bool:
+    """Whether a call on rows x n with this k takes the one-pass regime:
+    the switch of the .cu, asked of the library."""
+    return bool(_kernel().vector_topk_onepass(rows, n, k))
+
+
+@functools.lru_cache(maxsize=4096)
+def _sizes(rows: int, n: int, k: int):
+    """(scratch keys, state words) of a launch, asked of the library once
+    per shape."""
+    lib = _kernel()
+    return (int(lib.vector_topk_scratch_keys(rows, n, k)),
+            int(lib.vector_topk_state_words(rows, n, k)))
+
+
+def _state(device: torch.device, stream: int, words: int) -> torch.Tensor:
+    key = (device.index, stream)
+    with _STATE_LOCK:
+        t = _STATE.get(key)
+        if t is None or t.numel() < words:
+            t = _STATE[key] = torch.zeros(max(words, 1), dtype=torch.int32, device=device)
+        return t
+
+
+def launch_counts(rows: int, n: int, k: int) -> dict:
+    """{kernel name: launches} of one `topk` call on rows x n: the plan
+    the kernel's own launcher runs, read from the library. Builds the
+    kernel if needed."""
     lib = _kernel()
     counts = (ctypes.c_int * 16)()
-    m = lib.vector_topk_launch_counts(n, k, counts)
+    m = lib.vector_topk_launch_counts(rows, n, k, counts)
     if m < 0 or m > len(counts):
-        raise ValueError(f"no launch plan for n={n}, k={k}")
+        raise ValueError(f"no launch plan for rows={rows}, n={n}, k={k}")
     return {
         lib.vector_topk_kernel_name(i).decode(): counts[i]
         for i in range(m)
@@ -217,24 +250,24 @@ def topk(x, k, metric, sqnorm=None, valid=None, qstat=None, col_index=None):
     n = x.shape[1] if col_index is None else col_index.shape[0]
     out_d = torch.empty((rows, k), dtype=torch.float32, device=x.device)
     out_i = torch.empty((rows, k), dtype=torch.int32, device=x.device)
-    per_row = int(lib.vector_topk_scratch_per_row(n))
-    scratch = torch.empty((rows, per_row), dtype=torch.int64, device=x.device)
-    aux = torch.empty(
-        (rows, int(lib.vector_topk_aux_per_row())), dtype=torch.int32, device=x.device
-    )
+    keys, words = _sizes(rows, n, k)
+    scratch = torch.empty(max(keys, 1), dtype=torch.int64, device=x.device)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
+        state = _state(x.device, stream, words)
         err = lib.vector_topk_launch(
             x.data_ptr(), x.shape[1], ptr(sqnorm), ptr(valid), ptr(col_index),
             ptr(qstat), METRIC_ID[metric], rows, n, k,
             out_d.data_ptr(), out_i.data_ptr(), scratch.data_ptr(),
-            aux.data_ptr(), stream,
+            state.data_ptr(), stream,
         )
     if err:
+        with _STATE_LOCK:  # a launch cut short may leave it dirty
+            _STATE.pop((x.device.index, stream), None)
         raise RuntimeError(f"vector_topk launch failed: cudaError {err}")
     LAUNCHES += 1
     return out_d, out_i

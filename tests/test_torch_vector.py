@@ -295,21 +295,27 @@ def test_insert_update_remove_filtered_threshold(float_paths):
     assert list(port.search_with_uid(3, 2)) == list(ref.search_with_uid(3, 2)) == [2, 4]
 
 
-def test_filtered_search_widens_to_the_whole_set(float_paths):
+@pytest.mark.parametrize("n,far", [(3000, False), (20_000, True)])
+def test_filtered_search_widens_to_the_whole_set(float_paths, n, far):
     """The allowed filter widens the pool 4x until k survivors or the
-    live set is exhausted: npool reaches n, the top-k regime that sorts
-    whole rows."""
+    live set is exhausted: npool reaches n, where KV1 takes the whole row.
+    With `far`, the allowed uids are the two farthest from the query, so
+    the pool widens past 16,384 (k = 8, 32, ..., 8192, then n)."""
     rng = np.random.default_rng(5)
-    V = rng.integers(-8, 9, (3000, 8)).astype(np.float32)
+    V = rng.integers(-8, 9, (n, 8)).astype(np.float32)
     ref, port = _pair(ivf_threshold=1 << 62)
-    uids = np.arange(1, 3001, dtype=np.uint64)
+    uids = np.arange(1, n + 1, dtype=np.uint64)
     ref.bulk_load(uids, V)
     port.bulk_load(uids, V.copy())
-    allowed = np.array([7, 2999], np.uint64)
     q = V[5]
+    if far:
+        dist = ((V - q) ** 2).sum(1)
+        allowed = np.sort(np.argsort(dist, kind="stable")[-2:] + 1).astype(np.uint64)
+    else:
+        allowed = np.array([7, 2999], np.uint64)
     got = port.search(q, 2, allowed=allowed)
     np.testing.assert_array_equal(got, ref.search(q, 2, allowed=allowed))
-    assert sorted(got.tolist()) == [7, 2999]
+    assert sorted(got.tolist()) == allowed.tolist()
 
 
 @pytest.mark.parametrize("kind", ["int", "gauss"])
@@ -482,7 +488,8 @@ def test_carried_store_answers_similar_to(float_paths):
 
 def test_serve_vectors_phase_on_cpu(float_paths):
     """chip_smoke's vector main path (phase 7), rehearsed at a tiny size
-    on the CPU: the plain versions run, no kernel launches."""
+    on the CPU: the plain versions run, no kernel launches; read (i), the
+    filtered `similar_to`, equals the exact top-k of its allowed set."""
     import chip_smoke
 
     out = chip_smoke.serve_vectors(
@@ -492,5 +499,7 @@ def test_serve_vectors_phase_on_cpu(float_paths):
     assert out["launches"] == {"vector_topk": 0, "ivf_slab_scan": 0}
     assert min(out["plain_calls"].values()) >= 1
     assert out["recall"] >= 0.90 and out["batch_exact_ids"] == 16
+    # read (i) widened its pool 4x a step up to the live set
+    assert out["filtered_ks"] == [40, 160, 640, 1000] and out["topk_per_read"]["i"] == 4
     topk_sites, slab_sites = out["captured"]
     assert any(gathered for (_, _, _, gathered) in topk_sites) and slab_sites

@@ -9,10 +9,12 @@ version on the same card tensors:
 - KV1 must equal `topk_plain` bit for bit (distances and columns) for
   k in {1, 10, 80, 515, n}, rows up to 2^20, every metric, duplicate
   vectors, invalid (+inf) rows, the total order of ready distances
-  (-0.0, +-inf, NaN), the gathered-column form, both sides of the
-  select/sort switch, zero query rows (a padded batch), and a row of
-  all-equal keys (the select regime's
-  spill to scratch);
+  (-0.0, +-inf, NaN) and rows full of them, the gathered-column form,
+  both sides of the one-pass / radix switch, one row split over many
+  CTAs (the last one merges their lists), 65,535 rows, zero query rows
+  (a padded batch), rows of all-equal keys, and calls back to back
+  (the kernel's tickets and histograms must come back to zero by
+  themselves);
 - KV2 must agree with `slab_distances_plain` to `ivf_scan.tolerance`
   (the kernel sums each dot in its own order), on ragged slabs.
 
@@ -93,35 +95,104 @@ def test_topk_kernel_equals_plain(card, metric, n, d, kind, invalid, ks):
 
 
 def test_topk_select_sort_switch(card):
-    """Both sides of the regimes' switch, on one corpus."""
-    smax = vector_topk.select_max_k()
-    V, Q = _corpus(11, 2 * smax + 3, 16, "gauss")
+    """Both sides of the regimes' switch (one pass up to
+    `onepass_max_k()` on a row short enough for one CTA, radix above), on
+    one corpus."""
+    omax = vector_topk.onepass_max_k()
+    V, Q = _corpus(11, 2 * omax + 3, 16, "gauss")
     x, sq, valid, qs = _topk_args(V, Q, "euclidean", 0.1, 11, card)
-    for k in (smax, smax + 1):
+    n = x.shape[1]
+    assert vector_topk.onepass(4, n, omax) and not vector_topk.onepass(4, n, omax + 1)
+    for k in (omax, omax + 1):
         got = vector_topk.topk(x, k, "euclidean", sqnorm=sq, valid=valid, qstat=qs)
         _same(got, vector_topk.topk_plain(x, k, "euclidean", sq, valid, qs))
 
 
 def test_topk_launch_counts(card):
     """The launch plan the library reports, which chip_smoke.py uses to
-    scale traced kernel times to one call: three launches for the
-    select regime; for the sort, one bitonic stage per doubling of the
-    sorted run, each merge stage a tile pass plus one global step per
-    stride that spans tiles."""
+    scale traced kernel times to one call: one launch where the switch
+    takes one pass (the served shapes among them); otherwise one radix
+    pass per 12 bits of the (32 + ceil(log2 n))-bit keys (none for k = n,
+    where every key is selected), a collect, a tile sort and one merge per
+    doubling of 4096-key runs up to k."""
     assert vector_topk.MAX_N == vector_topk._kernel().vector_topk_max_n()
-    smax = vector_topk.select_max_k()
-    select = {"topk_hist_kernel": 1, "topk_collect_kernel": 1, "topk_finish_kernel": 1}
-    assert vector_topk.launch_counts(1 << 20, 10) == select
-    assert vector_topk.launch_counts(smax, smax) == select
-    for n in (smax + 1, 1 << 20, vector_topk.MAX_N):
-        plan = vector_topk.launch_counts(n, smax + 1)
-        merges = plan["topk_tile_kernel"] - 1
-        npad = 1 << (n - 1).bit_length()
-        tile = npad >> merges
-        assert tile <= smax and plan["topk_global_step_kernel"] == merges * (merges + 1) // 2
-        assert (plan["topk_keys_kernel"], plan["topk_emit_kernel"]) == (1, 1)
+    omax = vector_topk.onepass_max_k()
+    one = {"topk_onepass_kernel": 1}
+    for rows, n, k in ((64, 1 << 20, 10), (1, 1 << 17, 10), (1, 67_840, 80),
+                       (1, 67_840, 128), (1, 17_103, 530), (1, omax, omax)):
+        assert vector_topk.onepass(rows, n, k)
+        assert vector_topk.launch_counts(rows, n, k) == one, (rows, n, k)
+    for n, k in ((omax + 1, omax + 1), (1 << 20, omax + 1), (1 << 20, 16_385),
+                 (1 << 20, 1 << 20), (vector_topk.MAX_N, 5000)):
+        merges = max(0, (-(-k // 4096) - 1).bit_length())
+        want = {"topk_collect_kernel": 1, "topk_tile_kernel": 1}
+        if k < n:
+            want["topk_radix_kernel"] = -(-(32 + (n - 1).bit_length()) // 12)
+        if merges:
+            want["topk_merge_kernel"] = merges
+        assert vector_topk.launch_counts(1, n, k) == want, (n, k)
     with pytest.raises(ValueError):
-        vector_topk.launch_counts(vector_topk.MAX_N + 1, 1)
+        vector_topk.launch_counts(1, vector_topk.MAX_N + 1, 1)
+
+
+def _k_of(name, n, rows=1):
+    """k by name: "max" the one-pass regime's largest k, "limit" the
+    largest it takes on rows x n, "n" the whole row, else a number."""
+    omax = vector_topk.onepass_max_k()
+    limit = max(k for k in range(1, min(n, omax) + 1) if vector_topk.onepass(rows, n, k))
+    named = {"max": omax, "max+1": omax + 1, "limit": limit, "limit+1": limit + 1, "n": n}
+    return named.get(name) or int(name)
+
+
+@pytest.mark.parametrize("k", ["1", "10", "limit", "limit+1", "530", "max", "max+1", "16385"])
+def test_topk_one_row_many_ctas(card, k):
+    """One row of 2^20 is cut over many CTAs; the last one to finish
+    merges the others' lists (one pass) or settles the row's histogram
+    (radix). "limit": the largest k the switch takes in one pass here."""
+    V, Q = _corpus(21, 1 << 20, 8, "gauss")
+    x, sq, valid, qs = _topk_args(V, Q[:1], "euclidean", 0.03, 21, card)
+    k = _k_of(k, 1 << 20)
+    _same(vector_topk.topk(x, k, "euclidean", sqnorm=sq, valid=valid, qstat=qs),
+          vector_topk.topk_plain(x, k, "euclidean", sq, valid, qs))
+
+
+@pytest.mark.parametrize("k", ["1", "10", "max", "max+1", "n"])
+def test_topk_rows_of_special_values(card, k):
+    """Ready distances where 30% are NaN, +inf, -inf, -0.0 or 0.0."""
+    rng = np.random.default_rng(31)
+    n = 50_000
+    d = rng.standard_normal((4, n)).astype(np.float32)
+    special = np.array([np.nan, np.inf, -np.inf, -0.0, 0.0], np.float32)
+    d = np.where(rng.random(d.shape) < 0.3, special[rng.integers(0, 5, d.shape)], d)
+    x = torch.from_numpy(d.astype(np.float32)).to(card)
+    k = _k_of(k, n)
+    _same(vector_topk.topk(x, k, "distance"), vector_topk.topk_plain(x, k, "distance"))
+
+
+def test_topk_most_rows(card):
+    """65,535 rows (the grid's limit) of a small n, one CTA each."""
+    V, _ = _corpus(41, 64, 16, "gauss")
+    Q = np.random.default_rng(41).standard_normal((65535, 16)).astype(np.float32)
+    x, sq, valid, qs = _topk_args(V, Q, "euclidean", 0.1, 41, card)
+    for k in (1, 10, 64):
+        _same(vector_topk.topk(x, k, "euclidean", sqnorm=sq, valid=valid, qstat=qs),
+              vector_topk.topk_plain(x, k, "euclidean", sq, valid, qs))
+
+
+@pytest.mark.parametrize("k", ["10", "max", "max+1", "n"])
+def test_topk_back_to_back(card, k):
+    """Calls back to back, with no memset between them, give equal
+    answers, and leave the kernel's state at zero."""
+    V, Q = _corpus(51, 100_000, 8, "dup")
+    x, sq, valid, qs = _topk_args(V, Q, "euclidean", 0.1, 51, card)
+    k = _k_of(k, 100_000)
+    args = (x, k, "euclidean", sq, valid, qs)
+    first = vector_topk.topk(*args)
+    second = vector_topk.topk(*args)
+    want = vector_topk.topk_plain(*args)
+    _same(first, want)
+    _same(second, want)
+    assert all(int(t.abs().sum()) == 0 for t in vector_topk._STATE.values())
 
 
 def test_topk_total_order_of_ready_distances(card):
