@@ -44,7 +44,22 @@ Phases, each of which fails the run when it fails:
      IVF recall@10 over 64 queries must reach 0.90, the card must answer
      as the same index's CPU float path, KV1 and KV2 must have launched,
      and both are held against their plain versions on the inputs the
-     served reads gave them.
+     served reads gave them;
+  8. the write path, once on the WAL-backed store and once with
+     DGRAPH_TPU_STORAGE=lsm: a `Server(device="cuda", data_dir=<tmp>)`
+     with group commit on and the device path forced loads phase 4's
+     graph and phase 7's 100,000 `emb_small` rows (the lsm arm the first
+     25,000) through `mutate_json` (the answers must equal numpy), then
+     runs (u1) 8 threads x 500
+     email upserts (Dgraph's Upsert Block example; each email must end
+     with one uid), (u2) an upsert whose query block is query (b)'s
+     filtered level 3 (K1 must launch; `has(hot_seen)` must equal numpy)
+     and (u3) the bank in JSON, 8 threads x 250 transfers with a reader
+     checking the total at every snapshot. It closes the store, opens it
+     again in a new Server, times the recovery, and every answer of
+     before, 16 `similar_to` reads among them, must come back byte for
+     byte (K1 and KV1 must launch), with a fresh blank node above every
+     recovered uid.
 
 `--profile` adds, for the named queries (a-d of phase 4, e-i of phase
 7), where one warm run's time goes: host functions by own time
@@ -59,6 +74,7 @@ script exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -1241,6 +1257,7 @@ def serve_vectors(device="cuda", n=1_000_000, d=768, n_named=10_000, n_small=100
     for name in profile:
         log(f"profile of query ({name}):")
         profile_query(server, runs[name], log=lambda m: log("  " + m))
+    out["small"] = (V[:n_small].copy(), Qs)  # phase 8 commits these rows
     return out
 
 
@@ -1260,6 +1277,482 @@ def served_kernels(captured):
         if res[site]["mismatches"]:
             raise AssertionError(f"{site}: kernel beyond tolerance on the served inputs")
     return res
+
+
+# ---------------------------------------------------------------------------
+# The write path
+# ---------------------------------------------------------------------------
+
+WRITE_SCHEMA = ("child: [uid] .\ntag: string @index(exact) .\n"
+                "email: string @index(exact) @upsert .\nhot_seen: bool .\n"
+                "acct: string @index(exact) @upsert .\nbal: int @upsert .")
+SMALL_SCHEMA = 'emb_small: float32vector @index(hnsw(metric:"euclidean")) .'
+# (u1), the Upsert Block example of Dgraph's docs
+EMAIL_UPSERT = ('{{ v as var(func: eq(email, "{0}")) }}', '_:n <email> "{0}" .',
+                "@if(eq(len(v), 0))")
+# (u2): query (b)'s filtered level 3 as an upsert's query block
+HOT_UPSERT = ('{ var(func: uid(0x1)) { child { child { h as child @filter('
+              'eq(tag, "hot")) } } } }', 'uid(h) <hot_seen> "true"^^<xs:boolean> .')
+BANK_START = 100
+# what a restart must answer byte for byte as before it
+STATE_READS = {
+    "emails": "{ q(func: has(email)) { uid email } }",
+    "hot_seen": "{ q(func: has(hot_seen)) { uid } }",
+    "balances": "{ q(func: has(bal)) { uid acct bal } }",
+}
+
+
+def json_chunks(g, chunk=50_000):
+    """The fan-out graph as JSON mutation objects, in commits of about
+    `chunk` edges: the edges level by level, then one tag per pool node.
+    Yields (objects, edges)."""
+    f = g["f"]
+
+    def node(u, targets):
+        return {"uid": hex(int(u)), "child": [{"uid": hex(int(t))} for t in targets]}
+
+    top = [node(1, g["l1"])] + [node(g["l1"][i], g["l2"][i * f : (i + 1) * f])
+                                for i in range(f)]
+    yield top, f + f * f
+    per = max(1, chunk // f)
+    for s in range(0, len(g["l2"]), per):
+        e = min(s + per, len(g["l2"]))
+        yield [node(g["l2"][i], g["l3"][i * f : (i + 1) * f]) for i in range(s, e)], (e - s) * f
+    hot = set(g["hot"].tolist())
+    for s in range(0, len(g["pool"]), chunk):
+        part = g["pool"][s : s + chunk].tolist()
+        yield [{"uid": hex(u), "tag": "hot" if u in hot else "cold"} for u in part], len(part)
+
+
+def lease_through(zero, top):
+    """Lease every uid up to `top` from Zero, as a client does before it
+    writes explicit uids, so that blank nodes get uids of their own."""
+    first = zero.assign_uids(1)
+    if top > first:
+        zero.assign_uids(top - first)
+
+
+def _threads(work, args):
+    """Run work(*a) for each a in args on its own thread; re-raise the
+    first error any of them met."""
+    import threading
+
+    errors = []
+
+    def run(a):
+        try:
+            work(*a)
+        except BaseException as e:  # noqa: BLE001 - handed to the caller
+            errors.append(e)
+
+    ts = [threading.Thread(target=run, args=(a,)) for a in args]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=3600)
+        if t.is_alive():
+            raise AssertionError("a client thread did not finish")
+    if errors:
+        raise errors[0]
+
+
+def _conflict():
+    from dgraph_tpu_torch.zero.zero import TxnConflictError
+
+    return TxnConflictError
+
+
+def upsert_emails(server, pool, n_emails=2000, n_pre=1000, threads=8, per_thread=500,
+                  seed=11, conflict=None):
+    """(u1): `n_pre` emails set on pool nodes, then `threads` clients run
+    `per_thread` email upserts each, keys drawn with repeats (every email
+    at least once), retrying on `conflict` (the server's conflict error).
+    Checks that every email has one uid, the pre-set ones their pool
+    node, and that exactly the others are new. Returns the measurements
+    and the email -> uid map."""
+    conflict = conflict or _conflict()
+    rng = np.random.default_rng(seed)
+    emails = [f"user{i}@example.com" for i in range(n_emails)]
+    pre = rng.choice(pool, n_pre, replace=False)
+    server.new_txn().mutate_json(
+        set_obj=[{"uid": hex(int(u)), "email": emails[i]} for i, u in enumerate(pre)],
+        commit_now=True)
+    draws = np.concatenate([np.arange(n_emails),
+                            rng.integers(0, n_emails, threads * per_thread - n_emails)])
+    rng.shuffle(draws)
+    lat = [[] for _ in range(threads)]
+    aborts = [0] * threads
+
+    def client(i):
+        for key in draws[i::threads]:
+            q, m, c = (s.format(emails[key]) for s in EMAIL_UPSERT)
+            t0 = time.perf_counter()
+            while True:
+                try:
+                    server.new_txn().upsert(query=q, set_rdf=m, cond=c)
+                    break
+                except conflict:
+                    aborts[i] += 1
+            lat[i].append(time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    _threads(client, [(i,) for i in range(threads)])
+    wall = time.perf_counter() - t0
+    got = json.loads(_run_query(server, STATE_READS["emails"]))["q"]
+    owner = {}
+    for o in got:
+        owner.setdefault(o["email"], []).append(int(o["uid"], 16))
+    if sorted(owner) != sorted(emails) or any(len(v) != 1 for v in owner.values()):
+        dup = {k: v for k, v in owner.items() if len(v) != 1}
+        raise AssertionError(f"(u1): {len(owner)} emails, not one uid each: {list(dup.items())[:5]}")
+    if any(owner[emails[i]] != [int(u)] for i, u in enumerate(pre)):
+        raise AssertionError("(u1): a pre-set email lost its pool node")
+    new = {owner[e][0] for e in emails[n_pre:]}
+    if len(new) != n_emails - n_pre or new & set(int(u) for u in pool):
+        raise AssertionError(f"(u1): {len(new)} new nodes, not {n_emails - n_pre}")
+    ms = np.concatenate([np.asarray(v) for v in lat]) * 1e3
+    return {"upserts": len(draws), "wall_s": wall, "per_s": len(draws) / wall,
+            "p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99)),
+            "aborts": sum(aborts)}, {e: v[0] for e, v in owner.items()}
+
+
+def upsert_hot(server, g, count):
+    """(u2): the fan-out upsert. Marks every hot level-3 node of query (b)
+    through uid(h); checks has(hot_seen) against numpy. Returns the
+    member-sweep calls `count()` saw during the upsert."""
+    c0 = count()
+    t0 = time.perf_counter()
+    server.new_txn().upsert(query=HOT_UPSERT[0], set_rdf=HOT_UPSERT[1])
+    took = time.perf_counter() - t0
+    sweeps = count() - c0
+    want = sorted({u for row in expected(g, "b").values() for u in row})
+    got = sorted(int(o["uid"], 16)
+                 for o in json.loads(_run_query(server, STATE_READS["hot_seen"]))["q"])
+    if got != want:
+        raise AssertionError(f"(u2): has(hot_seen) holds {len(got)} uids, numpy {len(want)}")
+    return {"s": took, "sweeps": sweeps, "marked": len(got)}
+
+
+def bank(server, n=1000, threads=8, per_thread=250, seed=13, conflict=None):
+    """(u3), systest/bank in JSON: `n` accounts of BANK_START, then
+    `threads` clients run `per_thread` transfers each (read both balances
+    in the txn, mutate_json, commit; retried on `conflict`) while a
+    reader checks the total at every snapshot it reads. Checks the total
+    and that every committed transfer, and nothing else, moved money."""
+    import threading
+
+    conflict = conflict or _conflict()
+    made = server.new_txn().mutate_json(
+        set_obj=[{"uid": f"_:a{i}", "acct": f"a{i}", "bal": BANK_START} for i in range(n)],
+        commit_now=True)
+    accts = [int(made[f"a{i}"], 16) for i in range(n)]
+    total = n * BANK_START
+    done = [[] for _ in range(threads)]
+    aborts = [0] * threads
+    stop = threading.Event()
+    seen = {"reads": 0, "bad": [], "errors": []}
+
+    def transfer(frm, to, amount):
+        t = server.new_txn()
+        got = t.query(f"{{ a(func: uid({hex(frm)})) {{ bal }} "
+                      f"b(func: uid({hex(to)})) {{ bal }} }}")["data"]
+        a, b = got["a"][0]["bal"], got["b"][0]["bal"]
+        if a < amount:
+            t.discard()
+            return False
+        t.mutate_json(set_obj=[{"uid": hex(frm), "bal": a - amount},
+                               {"uid": hex(to), "bal": b + amount}])
+        t.commit()
+        return True
+
+    def client(i):
+        r = np.random.default_rng(seed + i)
+        for _ in range(per_thread):
+            frm, to = (accts[j] for j in r.choice(n, 2, replace=False))
+            amount = int(r.integers(1, 20))
+            while True:
+                try:
+                    if transfer(frm, to, amount):
+                        done[i].append((frm, to, amount))
+                    break
+                except conflict:
+                    aborts[i] += 1
+
+    every = f"{{ q(func: uid({', '.join(map(hex, accts))})) {{ bal }} }}"
+
+    def reader():
+        try:
+            while not stop.is_set():
+                bals = json.loads(_run_query(server, every))["q"]
+                seen["reads"] += 1
+                if sum(o["bal"] for o in bals) != total or len(bals) != n:
+                    seen["bad"].append(sum(o["bal"] for o in bals))
+                stop.wait(0.1)  # leave the clients most of the interpreter
+        except BaseException as e:  # noqa: BLE001 - re-raised after the join
+            seen["errors"].append(e)
+
+    rd = threading.Thread(target=reader)
+    rd.start()
+    t0 = time.perf_counter()
+    try:
+        _threads(client, [(i,) for i in range(threads)])
+    finally:
+        wall = time.perf_counter() - t0
+        stop.set()
+        rd.join(timeout=600)
+    if rd.is_alive():
+        raise AssertionError("(u3): the snapshot reader did not finish")
+    if seen["errors"]:
+        raise seen["errors"][0]
+    if seen["bad"] or not seen["reads"]:
+        raise AssertionError(f"(u3): {len(seen['bad'])} of {seen['reads']} snapshots off "
+                             f"the total {total}: {seen['bad'][:5]}")
+    want = dict.fromkeys(accts, BANK_START)
+    for frm, to, amount in (x for d in done for x in d):
+        want[frm] -= amount
+        want[to] += amount
+    got = {int(o["uid"], 16): o["bal"]
+           for o in json.loads(_run_query(server, STATE_READS["balances"]))["q"]}
+    if got != want:
+        raise AssertionError("(u3): final balances != the committed transfers (a lost update)")
+    ok, ab = sum(len(d) for d in done), sum(aborts)
+    return {"transfers": ok, "declined": threads * per_thread - ok, "aborts": ab,
+            "wall_s": wall, "per_s": ok / wall, "abort_share": ab / max(1, ok + ab),
+            "snapshots": seen["reads"]}
+
+
+@contextlib.contextmanager
+def _timing(into, *sites):
+    """Add the seconds each (owner, attribute) callable takes to
+    into[attribute] while the block runs."""
+    saved = []
+    for owner, name in sites:
+        real = getattr(owner, name)
+
+        def timed(*a, _real=real, _name=name, **k):
+            t = time.perf_counter()
+            try:
+                return _real(*a, **k)
+            finally:
+                into[_name] = into.get(_name, 0.0) + time.perf_counter() - t
+
+        saved.append((owner, name, real))
+        setattr(owner, name, timed)
+    try:
+        yield into
+    finally:
+        for owner, name, real in saved:
+            setattr(owner, name, real)
+
+
+def disk_bytes(path):
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def serve_writes(device, data_dir, V, Q, fanout=100, pool=200_000,
+                 vec_chunk=1000, edge_chunk=50_000, n_emails=2000, n_pre=1000,
+                 upsert_threads=8, upserts_per_thread=500, n_accounts=1000,
+                 bank_threads=8, transfers_per_thread=250, n_reads=16, k=10, log=print):
+    """Phase 8 on one store: a `Server(device, data_dir)` with group
+    commit on (the default) and the device path forced loads the fan-out
+    graph and the vectors V (n, d) through `mutate_json`, runs (u1)-(u3),
+    then restarts from `data_dir` and must answer everything as before,
+    the first `n_reads` queries of Q among it. The store is the one
+    DGRAPH_TPU_STORAGE names. Returns the measurements; raises when a
+    check fails."""
+    import gc
+
+    import torch
+
+    from dgraph_tpu_torch.api import server as server_mod
+    from dgraph_tpu_torch.ops import member_sweep, vector_topk
+    from dgraph_tpu_torch.query import dispatch
+    from dgraph_tpu_torch.utils.observe import METRICS
+
+    on_card = torch.device(device).type == "cuda"
+
+    def sweeps():
+        return member_sweep.LAUNCHES if on_card else member_sweep.PLAIN_CALLS
+
+    def topks():
+        return vector_topk.LAUNCHES if on_card else vector_topk.PLAIN_CALLS
+
+    g = make_graph(fanout, pool)
+    vec_base = int(g["pool"].max()) + 1
+    saved = (dispatch._FORCE_DEVICE, dispatch._USE_PALLAS)
+    dispatch._FORCE_DEVICE, dispatch._USE_PALLAS = True, True
+    out = {}
+    try:
+        server = server_mod.Server(device=device, data_dir=data_dir)
+        server.slow_query_ms = float("inf")
+        lease_through(server.zero, vec_base + len(V))
+        server.alter(WRITE_SCHEMA)
+        t0 = time.perf_counter()
+        edges = 0
+        for objs, n in json_chunks(g, edge_chunk):
+            server.new_txn().mutate_json(set_obj=objs, commit_now=True)
+            edges += n
+        out["load"] = {"edges": edges, "s": time.perf_counter() - t0}
+        out["load"]["per_s"] = edges / out["load"]["s"]
+        server.alter(SMALL_SCHEMA)
+        t0 = time.perf_counter()
+        for s in range(0, len(V), vec_chunk):
+            server.new_txn().mutate_json(
+                set_obj=[{"uid": hex(vec_base + i), "emb_small": V[i].tolist()}
+                         for i in range(s, min(s + vec_chunk, len(V)))], commit_now=True)
+        out["load"]["vectors"] = len(V)
+        out["load"]["vectors_s"] = time.perf_counter() - t0
+        if len(server.vector_indexes["emb_small"]) != len(V):
+            raise AssertionError("emb_small does not hold every committed vector")
+        log(f"loaded {edges} edges through mutate_json in {out['load']['s']:.3f}s "
+            f"({out['load']['per_s']:.1f} edges/s), {len(V)} x {V.shape[1]} vectors in "
+            f"{out['load']['vectors_s']:.3f}s")
+        answers = {}
+        for name, q in QUERIES.items():
+            answers[name] = _run_query(server, q)
+            want = expected(g, "a" if name == "a" else "b")
+            if extract(name, json.loads(answers[name])) != want:
+                raise AssertionError(f"query {name} after the JSON load != numpy reference")
+        qtext = [_vec_text(q) for q in Q[:n_reads]]
+        vec_q = [f'{{ q(func: similar_to(emb_small, {k}, "{t}")) {{ uid }} }}' for t in qtext]
+        for i, q in enumerate(vec_q):
+            answers[f"v{i}"] = _run_query(server, q)
+        ex_i, ex_d = exact_topk(V, Q[:n_reads], k)
+        rows = [np.asarray([int(o["uid"], 16) - vec_base for o in json.loads(answers[f"v{i}"])["q"]])
+                for i in range(n_reads)]
+        if not near_equal(V, Q[:n_reads], [np.sort(r) for r in rows], ex_d):
+            raise AssertionError("similar_to(emb_small) != exact top-k beyond near-ties")
+
+        gc0 = METRICS.hist_stats("group_commit_batch_size")
+        by0 = METRICS.value("group_commit_bypass_total")
+        out["u1"], owner = upsert_emails(server, g["pool"], n_emails, n_pre,
+                                         upsert_threads, upserts_per_thread)
+        log(f"(u1) {out['u1']['upserts']} email upserts from {upsert_threads} threads: "
+            f"{out['u1']['per_s']:.1f}/s, p50 {out['u1']['p50_ms']:.3f} ms, p99 "
+            f"{out['u1']['p99_ms']:.3f} ms, {out['u1']['aborts']} conflicts retried; "
+            f"{n_emails} emails, one uid each, {n_emails - n_pre} new")
+        with _Capture(member_sweep) as cap:
+            out["u2"] = upsert_hot(server, g, sweeps)
+        if out["u2"]["sweeps"] < 1:
+            raise AssertionError("(u2): the member sweep did not launch during the upsert")
+        if on_card:
+            A, LA, B, LB = cap.args
+            check_sorted(A, LA, B, LB)
+            got = member_sweep.membership_batch(A, LA, B, LB)
+            if not torch.equal(got, member_sweep.membership_batch_plain(A, LA, B, LB)):
+                raise AssertionError("(u2): K1 != plain on the upsert's inputs")
+            out["u2"]["sweep_shape"] = tuple(A.shape) + (B.shape[1],)
+        log(f"(u2) fan-out upsert in {out['u2']['s']:.3f}s marked {out['u2']['marked']} "
+            f"hot nodes (== numpy), member sweep {out['u2']['sweeps']} launches, equal to "
+            f"plain on its inputs {out['u2'].get('sweep_shape')}")
+        out["u3"] = bank(server, n_accounts, bank_threads, transfers_per_thread)
+        log(f"(u3) bank: {out['u3']['transfers']} transfers from {bank_threads} threads, "
+            f"{out['u3']['per_s']:.1f}/s, abort share {out['u3']['abort_share']:.4f}, "
+            f"{out['u3']['declined']} declined; total held at all "
+            f"{out['u3']['snapshots']} snapshots, no update lost")
+        gc1 = METRICS.hist_stats("group_commit_batch_size")
+        # coalesced batches only: an idle coalescer sends a commit down
+        # the serial path (the adaptive bypass), counted apart
+        out["batches"] = gc1[1] - gc0[1]
+        out["batch_mean"] = (gc1[0] - gc0[0]) / max(1, out["batches"])
+        out["bypassed"] = int(METRICS.value("group_commit_bypass_total") - by0)
+        log(f"group commit over (u1)-(u3): {out['batches']} batches of mean "
+            f"{out['batch_mean']:.3f} txns, {out['bypassed']} commits bypassed (idle)")
+        for name, q in STATE_READS.items():
+            answers[name] = _run_query(server, q)
+        known_top = max(vec_base + len(V), max(owner.values()),
+                        max(int(o["uid"], 16) for o in
+                            json.loads(answers["balances"])["q"]))
+
+        # the restart
+        server.kv.sync()
+        server.kv.close()
+        out["disk_bytes"] = disk_bytes(data_dir)
+        del server
+        gc.collect()
+        rec = {}
+        t0 = time.perf_counter()
+        with _timing(rec, (server_mod, "open_kv"), (server_mod.Server, "_load_persisted_state"),
+                     (server_mod.Server, "rebuild_vector_indexes")):
+            server = server_mod.Server(device=device, data_dir=data_dir)
+        rec["total"] = time.perf_counter() - t0
+        server.slow_query_ms = float("inf")
+        member_sweep.LAUNCHES = member_sweep.PLAIN_CALLS = 0
+        vector_topk.LAUNCHES = vector_topk.PLAIN_CALLS = 0
+        # KV1's inputs in the counted similar_to reads, held against its
+        # plain version once the counts are read
+        with _VecCapture() as vec_cap:
+            t0 = time.perf_counter()
+            again = {"v0": _run_query(server, vec_q[0])}
+            if on_card:
+                torch.cuda.synchronize()
+            rec["first_read"] = time.perf_counter() - t0
+            for i, q in enumerate(vec_q[1:], 1):
+                again[f"v{i}"] = _run_query(server, q)
+        out["recover"] = rec
+        log(f"restart: {rec['total']:.3f}s to a served store (open_kv "
+            f"{rec['open_kv']:.3f}s, schema/leases "
+            f"{rec['_load_persisted_state'] - rec['rebuild_vector_indexes']:.3f}s, "
+            f"emb_small rebuilt {rec['rebuild_vector_indexes']:.3f}s), first similar_to "
+            f"{rec['first_read']:.3f}s (the index's upload to the card); "
+            f"{out['disk_bytes']} bytes on disk")
+        per = {"similar_to": topks()}
+        cold = {}
+        for name, q in QUERIES.items():
+            c0 = sweeps()
+            t = time.perf_counter()
+            again[name] = _run_query(server, q)
+            cold[name] = (time.perf_counter() - t) * 1e3
+            per[name] = sweeps() - c0
+        for name, q in STATE_READS.items():
+            again[name] = _run_query(server, q)
+        out["after_restart_launches"] = {"member_sweep": sweeps(), "vector_topk": topks()}
+        if per["b"] < 1 or per["similar_to"] < n_reads:
+            raise AssertionError(f"after the restart: K1 {per['b']} in (b), KV1 "
+                                 f"{per['similar_to']} in {n_reads} similar_to reads")
+        ties = []
+        for name in answers:
+            if again[name] == answers[name]:
+                continue
+            if not name.startswith("v"):
+                raise AssertionError(f"after the restart, {name} answers differently")
+            i = int(name[1:])
+            got = np.sort([int(o["uid"], 16) - vec_base for o in json.loads(again[name])["q"]])
+            if not near_equal(V, Q[i : i + 1], [got], ex_d[i : i + 1]):
+                raise AssertionError(f"after the restart, similar_to read {i} moved beyond "
+                                     "a near-tie")
+            ties.append(i)
+        out["restart_near_ties"] = ties
+        out["restart_topk_sites"] = sorted(vec_cap.topk)
+        if on_card:
+            out["served"] = served_kernels((vec_cap.topk, vec_cap.slabs))
+            for site, r in out["served"].items():
+                log(f"{site} (the similar_to reads after the restart): equal to plain; "
+                    f"{_fmt(r)}")
+        # the first read of each after the restart (the card's operand
+        # cache empty), then one warm read
+        warm = {}
+        for name, q in list(QUERIES.items()) + [("similar_to", vec_q[0])]:
+            t = time.perf_counter()
+            _run_query(server, q)
+            warm[name] = (time.perf_counter() - t) * 1e3
+        cold["similar_to"] = rec["first_read"] * 1e3
+        out["read_ms"] = {"first": cold, "warm": warm}
+        fresh = int(server.new_txn().mutate_json(
+            set_obj={"uid": "_:fresh", "tag": "fresh"}, commit_now=True)["fresh"], 16)
+        if fresh <= known_top:
+            raise AssertionError(f"a blank node after the restart got {hex(fresh)}, at or "
+                                 f"below a recovered uid {hex(known_top)}")
+        log(f"after the restart: (a)-(d), {n_reads} similar_to reads (near-ties {ties}), "
+            f"emails, hot_seen and balances equal to before; K1 {per['b']} launches in (b), "
+            f"KV1 {per['similar_to']} in the similar_to reads; fresh blank node "
+            f"{hex(fresh)} > {hex(known_top)}; read ms {out['read_ms']}")
+        server.kv.close()
+    finally:
+        dispatch._FORCE_DEVICE, dispatch._USE_PALLAS = saved
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1372,6 +1865,7 @@ def card_line() -> str:
 
 def main(argv=None) -> int:
     import argparse
+    import tempfile
 
     import torch
 
@@ -1387,6 +1881,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA card visible; nothing was run", file=sys.stderr)
         return 2
     from dgraph_tpu_torch.ops import cuda_build
+    from dgraph_tpu_torch.x import config
 
     t_start = time.perf_counter()
     card = card_line()
@@ -1459,6 +1954,31 @@ def main(argv=None) -> int:
         print(f"    {site} (served inputs): equal to plain; {_fmt(r)}", flush=True)
     print(f"    total {time.perf_counter() - t_start:.3f}s", flush=True)
 
+    print("[8] the write path on the card: JSON load, upserts, group commit, restart; "
+          "at " + card, flush=True)
+    small_V, small_Q = v.pop("small")
+    writes = {}
+    for arm in ("mem", "lsm"):
+        config.set_env("STORAGE", arm)
+        try:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
+                print(f"    [{arm}] DGRAPH_TPU_STORAGE={arm}, data_dir {d}, {len(small_V)} "
+                      "vectors", flush=True)
+                writes[arm] = serve_writes("cuda", d, small_V, small_Q,
+                                           log=lambda m: print("      " + m, flush=True))
+        finally:
+            config.unset_env("STORAGE")
+    del small_V, small_Q
+    for arm, w in writes.items():
+        print(f"    [{arm}] " + json.dumps({
+            "load_edges_per_s": w["load"]["per_s"], "vectors_s": w["load"]["vectors_s"],
+            "upserts_per_s": w["u1"]["per_s"], "upsert_p50_ms": w["u1"]["p50_ms"],
+            "upsert_p99_ms": w["u1"]["p99_ms"], "transfers_per_s": w["u3"]["per_s"],
+            "abort_share": w["u3"]["abort_share"], "batch_mean": w["batch_mean"],
+            "vectors": w["load"]["vectors"], "disk_bytes": w["disk_bytes"],
+            "recover_s": w["recover"], "read_ms_after_restart": w["read_ms"]}), flush=True)
+    print(f"    total {time.perf_counter() - t_start:.3f}s", flush=True)
+
     # the kernels' rows: each at the served shape that moves most bytes
     def heaviest(prefix):
         return max((r for site, r in served.items() if site.startswith(prefix)),
@@ -1469,7 +1989,12 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "dgraph_tpu_torch/csrc/member_sweep.cu",
         "replaces": "dgraph_tpu/ops/pallas_setops.py:53",
-        "launches": s["launches"],
+        "launches": s["launches"] + sum(w["u2"]["sweeps"] + w["after_restart_launches"][
+            "member_sweep"] for w in writes.values()),
+        "launches_by_path": {"4": s["launches"], **{
+            f"8 {arm} {step}": n for arm, w in writes.items() for step, n in (
+                ("u2", w["u2"]["sweeps"]),
+                ("restart", w["after_restart_launches"]["member_sweep"]))}},
         "max_abs_err": main["max_abs_err"],
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],
@@ -1482,9 +2007,13 @@ def main(argv=None) -> int:
         ("ivf_slab_scan", "ivf_slab_scan.cu", "dgraph_tpu/models/vector.py:232", "KV2"),
     ):
         r = heaviest(prefix)
+        by_path = {"7": v["launches"][name]}
+        if name == "vector_topk":
+            by_path.update({f"8 {arm} restart": w["after_restart_launches"]["vector_topk"]
+                            for arm, w in writes.items()})
         rows.append({
             "name": name, "route": "cuda", "source": f"dgraph_tpu_torch/csrc/{src}",
-            "replaces": ref, "launches": v["launches"][name],
+            "replaces": ref, "launches": sum(by_path.values()), "launches_by_path": by_path,
             **{key: r[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")},
         })

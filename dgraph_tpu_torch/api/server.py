@@ -1,19 +1,25 @@
 """Embedded API front-end: the edgraph.Server equivalent, on one device.
 
-Port of `dgraph_tpu/api/server.py`, cut to the DQL read path and the
-mutations that feed it: `alter`, `new_txn().mutate_rdf(...,
-commit_now=True)` and `query`. Queries run through
-dql.parse -> query.Executor -> the streaming JSON encoder, with the set-op
-data plane on the dispatcher's torch device. Vector predicates
-(`float32vector @index(hnsw(...))`) get a `models.vector.VectorIndex` on
-the same device, fed at commit, so `similar_to` is served as in the
-reference.
+Port of `dgraph_tpu/api/server.py`: `alter`, transactions that take RDF
+and JSON mutations (`mutate_rdf`, `mutate_json`) and upsert blocks
+(`upsert`, `upsert_json`), `query`, and commits through group commit
+(worker/groupcommit.py; DGRAPH_TPU_GROUP_COMMIT=0 gives the serial
+path). `Server(data_dir=...)` keeps its store on disk (the WAL-backed
+in-memory store, or the SSTable store with DGRAPH_TPU_STORAGE=lsm,
+optionally encrypted) and recovers the schema, the timestamp and uid
+leases and the vector indexes when it opens one again. Queries run
+through dql.parse -> query.Executor -> the streaming JSON encoder, with
+the set-op data plane on the dispatcher's torch device. Vector
+predicates (`float32vector @index(hnsw(...))`) get a
+`models.vector.VectorIndex` on the same device, fed at commit and rebuilt
+on restart, so `similar_to` is served as in the reference.
 
-Left out of this slice (see ROADMAP): ACL and audit, the serving front
-(plan cache, admission, micro-batcher, result cache, digests), CDC and
-subscriptions, group commit (commits take the serial path that
-DGRAPH_TPU_GROUP_COMMIT=0 gives in the reference), JSON mutations and
-upsert blocks, RDF output, and the on-disk stores.
+Left out of the port so far (see ROADMAP): the serving front (plan
+cache, admission, micro-batcher, result cache, digests), so commits and
+alters make none of the reference's `serving.admit_write` /
+`release_write` / `on_commit` calls; ACL and audit, so the namespace is
+always the galaxy one and no entry point takes an `access_jwt`; CDC and
+subscriptions; RDF output.
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ import threading
 import time
 from typing import Dict, List, Optional
 
+import numpy as np
+
 from dgraph_tpu_torch import dql
 from dgraph_tpu_torch.loaders.rdf import NQuad, parse_rdf
 from dgraph_tpu_torch.posting import colwrite
@@ -30,20 +38,27 @@ from dgraph_tpu_torch.posting.lists import LocalCache, Txn
 from dgraph_tpu_torch.posting.memlayer import MemoryLayer
 from dgraph_tpu_torch.posting.mutation import (
     DirectedEdge,
+    apply_edge,
     apply_edges,
     delete_entity_attr,
     ingest_vectors,
 )
-from dgraph_tpu_torch.posting.pl import OP_DEL, OP_SET
+from dgraph_tpu_torch.posting.pl import OP_DEL, OP_SET, encode_deltas
 from dgraph_tpu_torch.query import dispatch
 from dgraph_tpu_torch.query.streamjson import encode_response_data
 from dgraph_tpu_torch.query.subgraph import Executor
 from dgraph_tpu_torch.schema.schema import State, parse_schema
 from dgraph_tpu_torch.storage.kv import KV, open_kv
-from dgraph_tpu_torch.types.types import TypeID
+from dgraph_tpu_torch.types.types import TypeID, Val
 from dgraph_tpu_torch.utils import observe
 from dgraph_tpu_torch.utils.cmsketch import StatsHolder, feed_stats
 from dgraph_tpu_torch.utils.observe import METRICS, TRACER, profile_scope
+from dgraph_tpu_torch.worker.groupcommit import (
+    GroupCommit,
+    assign_verdicts,
+    columnar_writes,
+    commit_phase_ns,
+)
 from dgraph_tpu_torch.x import config, keys
 from dgraph_tpu_torch.zero.zero import ZeroLite
 
@@ -70,12 +85,86 @@ class TxnHandle:
     def mutate_rdf(
         self, set_rdf: str = "", del_rdf: str = "", commit_now: bool = False
     ) -> Dict[str, str]:
-        uids = self.server._apply_nquads(
-            self.txn, parse_rdf(set_rdf), parse_rdf(del_rdf), keys.GALAXY_NS
-        )
+        uids = self.server._apply_rdf(self.txn, set_rdf, del_rdf)
         if commit_now:
             self.commit()
         return uids
+
+    def mutate_json(self, set_obj=None, del_obj=None, commit_now: bool = False):
+        """A JSON mutation (the `SetJson` / `DeleteJson` of dgo clients):
+        objects or lists of objects with "uid" refs, blank nodes as
+        "_:name". Returns the uids given to blank nodes."""
+        uids = self.server._apply_json(self.txn, set_obj, del_obj)
+        if commit_now:
+            self.commit()
+        return uids
+
+    def _upsert_prologue(self, query: str):
+        """Shared upsert front half: run the query block in this txn's
+        snapshot, binding uid and value vars. Returns (uid_vars,
+        val_vars)."""
+        blocks = dql.parse(query) if query.strip() else []
+        uid_vars: Dict[str, List[int]] = {}
+        val_vars: Dict[str, dict] = {}
+        if blocks:
+            self.txn.materialize_cols()  # upsert query reads own writes
+            ex = Executor(
+                self.txn.cache,
+                self.server.schema,
+                ns=keys.GALAXY_NS,
+                vector_indexes=self.server.vector_indexes,
+            )
+            ex.process(blocks)
+            uid_vars = {
+                k: [int(u) for u in v] for k, v in ex.uid_vars.items()
+            }
+            val_vars = ex.val_vars
+        return uid_vars, val_vars
+
+    def upsert(
+        self,
+        query: str,
+        set_rdf: str = "",
+        del_rdf: str = "",
+        cond: Optional[str] = None,
+        commit_now: bool = True,
+    ) -> Dict[str, str]:
+        """Upsert block: run query, substitute uid(v)/val(v) refs in the
+        mutation, apply (ref edgraph/server.go:874 buildUpsertQuery +
+        dql upsert blocks). `cond` is '@if(eq(len(v), 0))'-style gate."""
+        uid_vars, val_vars = self._upsert_prologue(query)
+        if cond is not None and not _eval_cond(cond, uid_vars):
+            if commit_now:
+                self.commit()
+            return {}
+        out = self.server._apply_rdf_with_vars(
+            self.txn, set_rdf, del_rdf, uid_vars, val_vars
+        )
+        if commit_now:
+            self.commit()
+        return out
+
+    def upsert_json(
+        self, query: str, mutations: List[dict], commit_now: bool = True
+    ) -> Dict[str, str]:
+        """Multi-mutation JSON upsert: one query block binding uid vars,
+        then a list of {"set": obj, "delete": obj, "cond": "@if(...)"}
+        mutations applied against those bindings (ref edgraph/server.go
+        doQuery with req.Mutations[])."""
+        uid_vars, val_vars = self._upsert_prologue(query)
+        blanks: Dict[str, int] = {}  # blank-node map SHARED across the
+        # request's mutations (ref: one AssignUids per request)
+        for m in mutations:
+            cond = m.get("cond")
+            if cond and not _eval_cond(cond, uid_vars):
+                continue
+            self.server._apply_json_with_vars(
+                self.txn, m.get("set"), m.get("delete"), uid_vars,
+                blank=blanks, val_vars=val_vars,
+            )
+        if commit_now:
+            self.commit()
+        return {k[2:]: hex(v) for k, v in blanks.items()}
 
     def commit(self) -> int:
         if self.finished:
@@ -93,17 +182,25 @@ class Server:
     torch device. `device="cuda"` (the default) binds the set-op
     dispatcher to the card and raises when there is none; the tests pass
     `device="cpu"`. The dispatcher is process-wide, so one process
-    serves from one device: the last Server built sets it."""
+    serves from one device: the last Server built sets it. `data_dir`
+    keeps the store on disk and recovers what it holds (None: in
+    memory); `encryption_key` seals it at rest."""
 
-    def __init__(self, device="cuda"):
+    def __init__(
+        self,
+        device="cuda",
+        data_dir: Optional[str] = None,
+        encryption_key: Optional[bytes] = None,
+    ):
         dispatch.DISPATCHER.bind(device)
         self.device = dispatch.DISPATCHER.device
-        self.kv: KV = open_kv()
+        self.kv: KV = open_kv(data_dir, encryption_key=encryption_key)
         self.zero = ZeroLite()
         self.schema = State()
         # predicate -> models.vector.VectorIndex on self.device
         self.vector_indexes: Dict[str, object] = {}
         self._lock = threading.Lock()
+        self._group_commit = None  # lazy (worker/groupcommit.py)
         # slow-query threshold (instance override of the registry knob)
         self.slow_query_ms = float(config.get("SLOW_QUERY_MS"))
         self.mem = MemoryLayer()  # shared decoded-list read cache
@@ -112,6 +209,13 @@ class Server:
         # before zero.applied, the barrier read_ts waits on)
         self._snapshot_ts = 0
         self._bootstrap_schema()
+        if data_dir is not None:
+            self._load_persisted_state()
+        # warm the native C++ layer off the request path (first import
+        # compiles codec.cpp; without this the first query/rollup pays it)
+        threading.Thread(
+            target=lambda: __import__("dgraph_tpu_torch.native"), daemon=True
+        ).start()
 
     def _apply_nquads(self, txn, set_nqs, del_nqs, ns) -> Dict[str, str]:
         blank: Dict[str, int] = {}
@@ -161,6 +265,41 @@ class Server:
             "dgraph.xid: string @index(exact) .\n"
         )[0]:
             self.schema.set(su)
+
+    def _load_persisted_state(self):
+        """Recover schema + max ts/uid from the KV after restart (ref
+        schema load in schema/schema.go LoadFromDb; Zero state from raft)."""
+        max_ts = 0
+        max_uid = 0
+        for key, vers in self.kv.iterate_versions(b"", (1 << 62)):
+            if vers:
+                max_ts = max(max_ts, vers[0][0])
+            try:
+                pk = keys.parse_key(key)
+            except Exception:
+                continue  # non-graph meta keys (e.g. namespace counter)
+            if pk.uid is not None:
+                max_uid = max(max_uid, pk.uid)
+            if pk.is_schema:
+                preds, _ = parse_schema(vers[0][1].decode("utf-8"))
+                for su in preds:
+                    self.schema.set(su)
+                    if su.vector_specs:
+                        self._ensure_vector_index(su)
+            elif pk.is_type:
+                _, types = parse_schema(vers[0][1].decode("utf-8"))
+                for tu in types:
+                    self.schema.set_type(tu)
+        while self.zero.max_assigned < max_ts:
+            self.zero.next_ts(max_ts - self.zero.max_assigned)
+        # re-lease uids past everything on disk, or fresh blank nodes would
+        # reuse (and overwrite) existing entities' uids
+        if max_uid and max_uid < (1 << 62) and self.zero._max_uid <= max_uid:
+            self.zero.assign_uids(max_uid - self.zero._max_uid)
+        # seed the snapshot watermark past everything recovered, so
+        # watermark reads see the restored store from the first query
+        self._snapshot_ts = max(self._snapshot_ts, self.zero.read_ts())
+        self.rebuild_vector_indexes()
 
     def carry(self, kv_blob: bytes, schema_text: str, max_uid: int, max_ts: int):
         """Take over a store: the bytes of a `MemKV.dump_bytes()`, the
@@ -297,37 +436,33 @@ class Server:
     def new_txn(self, read_only: bool = False) -> TxnHandle:
         return TxnHandle(self, read_only)
 
-    def _commit(self, txn: Txn, timed: bool = True) -> int:
-        """The reference's serial commit path (_commit_serial)."""
+    def _commit(self, txn: Txn) -> int:
+        # a commit-time consumer of Posting objects that appeared after
+        # txn creation (vector index) forces collected columns back to
+        # the serial representation
         colwrite.commit_guard(txn, self)
         t_commit0 = time.monotonic()
-        # serialized: MemKV is single-writer, and readers must not see a
-        # commit_ts whose deltas aren't written yet
-        with TRACER.span("commit"), (
-            METRICS.timer("commit_latency_seconds")
-            if timed
-            else contextlib.nullcontext()
-        ), self._lock:
-            commit_ts = self.zero.commit(txn.start_ts, txn.conflict_keys, track=True)
-            try:
-                txn.write_deltas(self.kv, commit_ts)
-            finally:
-                # watermark BEFORE the apply barrier: any read_ts
-                # allocated after this commit becomes visible observes
-                # the advanced watermark
-                self._snapshot_ts = max(self._snapshot_ts, commit_ts)
-                self.zero.applied(commit_ts)
-        METRICS.inc("num_commits")
-        # a commit must never leave a stale operand on the card: the
-        # memory layer drops the dispatcher's cached device copies too
-        self.mem.invalidate(txn.cache.deltas.keys())
-        ck = getattr(txn, "col_keys", None)
-        if ck:
-            self.mem.invalidate(ck)
-        feed_stats(self.stats, txn.cache.deltas)
-        colwrite.feed_col_stats(self.stats, txn)
-        # vector index ingestion at commit (factory seam)
-        ingest_vectors(self.vector_indexes, txn.cache.deltas)
+        if not bool(config.get("GROUP_COMMIT")):
+            # escape hatch (DGRAPH_TPU_GROUP_COMMIT=0): the serial
+            # per-txn path, byte-for-byte
+            commit_ts = self._commit_serial(txn)
+        else:
+            gc = self._group_commit
+            if gc is None:
+                with self._lock:
+                    gc = self._group_commit
+                    if gc is None:
+                        gc = self._group_commit = GroupCommit(
+                            self._gc_propose, serial_fn=self._gc_serial
+                        )
+            with METRICS.timer("commit_latency_seconds"):
+                commit_ts = gc.commit(txn)
+            if not getattr(txn, "gc_bypassed", False):
+                # the bypass ran the serial path, whose inline
+                # post-commit work already happened
+                self._post_commit(txn, commit_ts)
+        # counted for both arms, only on success: postings WRITTEN (the
+        # columnar kernel reports its exact count)
         METRICS.inc(
             "mutation_edges_total",
             sum(len(p) for p in txn.cache.deltas.values())
@@ -340,7 +475,191 @@ class Server:
         )
         return commit_ts
 
+    def _gc_propose(self, members):
+        """Group-commit propose phase (batch leader's thread): ONE
+        oracle exchange decides every member, then all committed
+        members' deltas land under ONE lock hold. Returns the apply
+        barrier (watermark + zero.applied in commit-ts order)."""
+        with TRACER.span("commit", batch=len(members)):
+            t0 = time.perf_counter_ns()
+            committed = assign_verdicts(
+                members,
+                self.zero.commit_batch(
+                    [
+                        (m.txn.start_ts, m.txn.conflict_keys)
+                        for m in members
+                    ],
+                    track=True,
+                ),
+            )
+            t1 = time.perf_counter_ns()
+            try:
+                # encode OUTSIDE the lock (columnar members through ONE
+                # batch_apply call, which must precede encode_deltas: a
+                # materialized fallback lands in cache.deltas), then all
+                # batch members' writes land in ONE put_batch
+                col_writes = columnar_writes(committed)
+                writes = []
+                for m in committed:
+                    cts = m.commit_ts
+                    for key, recb, _attr in col_writes.get(m, ()):
+                        writes.append((key, cts, recb))
+                    for key, recb in encode_deltas(m.txn.cache.deltas):
+                        writes.append((key, cts, recb))
+                with self._lock:
+                    self.kv.put_batch(writes)
+            except Exception as e:
+                # NEVER raise past the oracle: the verdicts are tracked
+                # pending, and only the barrier below clears them
+                for m in committed:
+                    if m.error is None:
+                        m.error = e
+            commit_phase_ns(
+                oracle=t1 - t0, propose=time.perf_counter_ns() - t1
+            )
+
+        def barrier():
+            tb = time.perf_counter_ns()
+            try:
+                with self._lock:
+                    for m in committed:
+                        # watermark BEFORE the apply barrier, advanced
+                        # in commit-ts order (members cts-ascending,
+                        # barriers FIFO)
+                        self._snapshot_ts = max(
+                            self._snapshot_ts, m.commit_ts
+                        )
+                        self.zero.applied(m.commit_ts)
+            finally:
+                ok = 0
+                for m in committed:
+                    # a commit must never leave a stale operand on the
+                    # card: the memory layer drops the dispatcher's
+                    # cached device copies too
+                    self.mem.invalidate(m.txn.cache.deltas.keys())
+                    ck = getattr(m.txn, "col_keys", None)
+                    if ck:
+                        self.mem.invalidate(ck)
+                    if m.error is None:
+                        ok += 1
+                if ok:
+                    METRICS.inc("num_commits", ok)
+                commit_phase_ns(apply=time.perf_counter_ns() - tb)
+
+        return barrier
+
+    def _post_commit(self, txn: Txn, commit_ts: int) -> None:
+        """Per-txn post-commit work on the committer's own thread (stats
+        feed, vector ingest): everything after the apply barrier that
+        doesn't need batch ordering."""
+        feed_stats(self.stats, txn.cache.deltas)
+        colwrite.feed_col_stats(self.stats, txn)
+        ingest_vectors(self.vector_indexes, txn.cache.deltas)
+
+    def _gc_serial(self, txn: Txn) -> int:
+        """Adaptive group-commit bypass target (worker/groupcommit.py):
+        the serial path minus its own latency timer (gc.commit's caller
+        already runs one), with the txn marked so _commit skips the
+        batch-path _post_commit: the serial path does that work inline."""
+        txn.gc_bypassed = True
+        return self._commit_serial(txn, timed=False)
+
+    def _commit_serial(self, txn: Txn, timed: bool = True) -> int:
+        # serialized: MemKV is single-writer, and readers must not see a
+        # commit_ts whose deltas aren't written yet
+        with TRACER.span("commit"), (
+            METRICS.timer("commit_latency_seconds")
+            if timed
+            else contextlib.nullcontext()
+        ), self._lock:
+            t0 = time.perf_counter_ns()
+            commit_ts = self.zero.commit(txn.start_ts, txn.conflict_keys, track=True)
+            t1 = time.perf_counter_ns()
+            try:
+                txn.write_deltas(self.kv, commit_ts)
+            finally:
+                t2 = time.perf_counter_ns()
+                # watermark BEFORE the apply barrier: any read_ts
+                # allocated after this commit becomes visible observes
+                # the advanced watermark
+                self._snapshot_ts = max(self._snapshot_ts, commit_ts)
+                self.zero.applied(commit_ts)
+                commit_phase_ns(
+                    oracle=t1 - t0,
+                    propose=t2 - t1,
+                    apply=time.perf_counter_ns() - t2,
+                )
+        METRICS.inc("num_commits")
+        # a commit must never leave a stale operand on the card: the
+        # memory layer drops the dispatcher's cached device copies too
+        self.mem.invalidate(txn.cache.deltas.keys())
+        ck = getattr(txn, "col_keys", None)
+        if ck:
+            self.mem.invalidate(ck)
+        feed_stats(self.stats, txn.cache.deltas)
+        colwrite.feed_col_stats(self.stats, txn)
+        # vector index ingestion at commit (factory seam)
+        ingest_vectors(self.vector_indexes, txn.cache.deltas)
+        return commit_ts
+
     # -- mutations -------------------------------------------------------------
+
+    def _apply_rdf(
+        self, txn: Txn, set_rdf: str, del_rdf: str, ns: int = keys.GALAXY_NS
+    ) -> Dict[str, str]:
+        return self._apply_nquads(
+            txn, parse_rdf(set_rdf), parse_rdf(del_rdf), ns
+        )
+
+    def _apply_rdf_with_vars(
+        self, txn: Txn, set_rdf: str, del_rdf: str, uid_vars, val_vars,
+        ns: int = keys.GALAXY_NS,
+    ) -> Dict[str, str]:
+        """RDF application where subjects/objects may be uid(v) refs and
+        values val(v) refs; the mutation fans out over the var's uids
+        (ref dql upsert semantics)."""
+        blank: Dict[str, int] = {}
+
+        def resolve_many(ref: str) -> List[int]:
+            if ref.startswith("uid("):
+                var = ref[4:-1]
+                return uid_vars.get(var, [])
+            if ref.startswith("_:"):
+                if ref not in blank:
+                    blank[ref] = self.zero.assign_uids(1)
+                return [blank[ref]]
+            return [int(ref, 16) if ref.startswith("0x") else int(ref)]
+
+        def apply_all(rdf: str, op: int):
+            for nq in parse_rdf(rdf):
+                for subj in resolve_many(nq.subject):
+                    if nq.object_id and nq.object_id.startswith("val("):
+                        # val(v): per-subject value substitution
+                        var = nq.object_id[4:-1]
+                        v = val_vars.get(var, {}).get(subj)
+                        if v is None:
+                            continue
+                        apply_edge(
+                            txn,
+                            self.schema,
+                            DirectedEdge(
+                                subj, nq.predicate, value=v,
+                                facets=nq.facets, op=op, ns=ns,
+                            ),
+                        )
+                        continue
+                    objs = (
+                        resolve_many(nq.object_id) if nq.object_id else [None]
+                    )
+                    for obj in objs:
+                        self._apply_nquad(
+                            txn, nq, None, op, subj_uid=subj, obj_uid=obj,
+                            ns=ns,
+                        )
+
+        apply_all(set_rdf, OP_SET)
+        apply_all(del_rdf, OP_DEL)
+        return {k[2:]: hex(v) for k, v in blank.items()}
 
     def _nquad_edge(
         self,
@@ -371,6 +690,244 @@ class Server:
             op=op,
             ns=ns,
         )
+
+    def _apply_nquad(
+        self,
+        txn: Txn,
+        nq: NQuad,
+        resolve,
+        op: int,
+        subj_uid: Optional[int] = None,
+        obj_uid: Optional[int] = None,
+        ns: int = keys.GALAXY_NS,
+    ):
+        """Apply one N-Quad. Callers either pass a `resolve` function or
+        pre-resolved subject/object uids (the upsert fan-out path — pinned
+        by role, so `uid(v) <p> uid(v)` self-pairs resolve correctly)."""
+        if nq.star:
+            if op != OP_DEL:
+                raise ValueError("S P * only valid in delete")
+            subj = subj_uid if subj_uid is not None else resolve(nq.subject)
+            delete_entity_attr(txn, self.schema, subj, nq.predicate, ns)
+            return
+        edge = self._nquad_edge(
+            nq, resolve, op, subj_uid=subj_uid, obj_uid=obj_uid, ns=ns
+        )
+        apply_edge(txn, self.schema, edge)
+
+    def _apply_json(
+        self, txn: Txn, set_obj, del_obj, ns: int = keys.GALAXY_NS
+    ) -> Dict[str, str]:
+        """JSON mutation format (ref chunker/json_parser.go): nested
+        objects with "uid" refs; blank nodes via "_:name". Delegates to
+        the var-aware walker (no vars bound) so set/delete semantics —
+        schema-typed conversion, bare-uid node deletes, null-predicate
+        deletes — stay in one place."""
+        return self._apply_json_with_vars(txn, set_obj, del_obj, {}, ns=ns)
+
+    def _node_type_preds(self, txn: Txn, uid: int, ns=keys.GALAXY_NS):
+        """Predicates expanded from the node's dgraph.type definitions
+        (ref worker/mutation.go expandEdges for S * * deletes)."""
+        tkey = keys.DataKey("dgraph.type", uid, ns)
+        preds = []
+        for p in txn.cache.values(tkey):
+            tu = self.schema.get_type(str(p.val().value))
+            if tu is not None:
+                preds.extend(tu.fields)
+        return preds
+
+    def _apply_json_with_vars(
+        self, txn: Txn, set_obj, del_obj, uid_vars,
+        ns: int = keys.GALAXY_NS, blank: Optional[Dict[str, int]] = None,
+        val_vars: Optional[Dict[str, dict]] = None,
+    ) -> Dict[str, str]:
+        """JSON mutations whose uid refs may be upsert vars — the format
+        the reference's GraphQL mutation rewriters emit (setjson /
+        deletejson with "uid(x)" refs and @if conds, ref
+        graphql/resolve/mutation_rewriter.go + edgraph doMutate var
+        expansion). Values convert by schema type (geo dicts, datetimes),
+        a bare {"uid": U} in delete drops the whole node (S * *), and a
+        null field value in delete drops the predicate (S P *)."""
+        blank = blank if blank is not None else {}
+
+        fresh_uids: set = set()  # uids leased by THIS request
+
+        def resolve_many(ref) -> List[int]:
+            if isinstance(ref, int):
+                return [ref]
+            if ref.startswith("uid("):
+                return list(uid_vars.get(ref[4:-1], []))
+            if ref.startswith("_:"):
+                if ref not in blank:
+                    blank[ref] = self.zero.assign_uids(1)
+                    fresh_uids.add(blank[ref])
+                return [blank[ref]]
+            return [int(ref, 16) if ref.startswith("0x") else int(ref)]
+
+        def to_val(su, v) -> Val:
+            # (geo dicts never reach here — walk() routes them through
+            # is_geo_literal directly; `su` is the caller's schema
+            # entry — one lookup per field, not one per item)
+            tid = su.value_type if su is not None else None
+            if tid == TypeID.DATETIME:
+                from dgraph_tpu_torch.types.types import parse_datetime
+
+                return Val(TypeID.DATETIME, parse_datetime(str(v)))
+            if tid == TypeID.PASSWORD:
+                from dgraph_tpu_torch.types.types import convert
+
+                return convert(Val(TypeID.STRING, str(v)), TypeID.PASSWORD)
+            if tid == TypeID.VFLOAT and isinstance(v, list):
+                return Val(TypeID.VFLOAT, np.asarray(v, dtype=np.float32))
+            return _json_to_val(v)
+
+        def is_geo_literal(v) -> bool:
+            return (
+                isinstance(v, dict)
+                and "coordinates" in v
+                and v.get("type")
+                in ("Point", "Polygon", "MultiPolygon", "MultiPoint")
+            )
+
+        # batched application: edges accumulate and flush through
+        # apply_edges (bulk reads + bulk tokens, posting/mutation.py);
+        # every delete flushes first so it observes the edges that
+        # preceded it in walk order
+        pending: List[DirectedEdge] = []
+
+        def flush():
+            if pending:
+                apply_edges(txn, self.schema, pending)
+                pending.clear()
+
+        def edge(subj, pred, op, value=None, value_id=None, lang=""):
+            pending.append(
+                DirectedEdge(
+                    subj, pred, value=value, value_id=value_id,
+                    lang=lang, op=op, ns=ns,
+                    fresh=subj in fresh_uids,
+                )
+            )
+
+        def walk(obj, op, top=False) -> List[int]:
+            uid_ref = obj.get("uid")
+            subjects = resolve_many(
+                uid_ref if uid_ref is not None else f"_:auto{id(obj)}"
+            )
+            rest = [(k, v) for k, v in obj.items() if k != "uid"]
+            if op == OP_DEL and not rest and top:
+                # bare top-level {"uid": U}: delete the node outright
+                # (nested bare refs are edge targets, not node deletes)
+                flush()
+                for subj in subjects:
+                    for pred in self._node_type_preds(txn, subj, ns):
+                        delete_entity_attr(txn, self.schema, subj, pred, ns)
+                    delete_entity_attr(
+                        txn, self.schema, subj, "dgraph.type", ns
+                    )
+                return subjects
+            schema_get = self.schema.get
+            pending_append = pending.append
+            for subj in subjects:
+                fresh = subj in fresh_uids
+                for k, v in rest:
+                    if k == "dgraph.type":
+                        for t in _as_list(v):
+                            edge(
+                                subj, "dgraph.type", op,
+                                value=Val(TypeID.STRING, t),
+                            )
+                        continue
+                    pred, lang = (
+                        k.split("@", 1) if "@" in k else (k, "")
+                    )
+                    if v is None:
+                        if op == OP_DEL:
+                            flush()
+                            delete_entity_attr(
+                                txn, self.schema, subj, pred, ns
+                            )
+                        continue
+                    su = schema_get(pred)
+                    # flat-scalar fast path: the dominant live-loader
+                    # shape is {"pred": <str|int|float|bool>} — one
+                    # constructor each, skipping the list/geo/dict
+                    # dispatch below (per-edge GIL work on the write
+                    # hot path). DATETIME/PASSWORD convert in to_val.
+                    tv = type(v)
+                    if tv is str:
+                        if not v.startswith("val(") and (
+                            su is None
+                            or su.value_type not in _SLOW_JSON_TIDS
+                        ):
+                            pending_append(DirectedEdge(
+                                subj, pred, Val(TypeID.STRING, v),
+                                None, lang, None, op, ns, fresh,
+                            ))
+                            continue
+                    elif tv is bool or tv is int or tv is float:
+                        if (
+                            su is None
+                            or su.value_type not in _SLOW_JSON_TIDS
+                        ):
+                            pending_append(DirectedEdge(
+                                subj, pred,
+                                Val(
+                                    TypeID.BOOL if tv is bool
+                                    else TypeID.INT if tv is int
+                                    else TypeID.FLOAT, v,
+                                ),
+                                None, lang, None, op, ns, fresh,
+                            ))
+                            continue
+                    if (
+                        su is not None
+                        and su.value_type == TypeID.VFLOAT
+                        and isinstance(v, list)
+                        and v
+                        and isinstance(v[0], (int, float))
+                    ):
+                        edge(subj, pred, op, value=to_val(su, v))
+                        continue
+                    for item in _as_list(v):
+                        if is_geo_literal(item):
+                            edge(subj, pred, op, value=Val(TypeID.GEO, item))
+                        elif isinstance(item, dict):
+                            if len(item) == 1 and "uid" in item:
+                                # bare nested ref: resolve without the
+                                # recursive walk frame
+                                for child in resolve_many(item["uid"]):
+                                    pending_append(DirectedEdge(
+                                        subj, pred, None, child, "",
+                                        None, op, ns, fresh,
+                                    ))
+                                continue
+                            for child in walk(item, op):
+                                edge(subj, pred, op, value_id=child)
+                        elif (
+                            isinstance(item, str)
+                            and item.startswith("val(")
+                            and item.endswith(")")
+                        ):
+                            # val(v): per-subject value substitution,
+                            # like the RDF upsert path
+                            vv = (val_vars or {}).get(item[4:-1], {})
+                            got = vv.get(subj)
+                            if got is not None:
+                                edge(subj, pred, op, value=got, lang=lang)
+                        else:
+                            edge(
+                                subj, pred, op,
+                                value=to_val(su, item), lang=lang,
+                            )
+            return subjects
+
+        for obj in _as_list(set_obj):
+            walk(obj, OP_SET, top=True)
+        for obj in _as_list(del_obj):
+            walk(obj, OP_DEL, top=True)
+        flush()
+        return {k[2:]: hex(v) for k, v in blank.items()}
 
     # -- queries ----------------------------------------------------------------
 
@@ -566,3 +1123,105 @@ def _schema_line(su) -> str:
         directives.append("@unique")
     d = (" " + " ".join(directives)) if directives else ""
     return f"{su.predicate}: {t}{d} ."
+
+
+def _eval_cond(cond: str, uid_vars) -> bool:
+    """Evaluate '@if(...)' upsert conditions: len(var) comparisons
+    combined with AND/OR/NOT and parentheses (ref dql conditional
+    mutations, edgraph/server.go parseMutationObject cond handling)."""
+    import re as _re
+
+    m = _re.match(r"\s*@if\s*\((.*)\)\s*$", cond, _re.S)
+    if not m:
+        raise ValueError(f"unsupported upsert condition {cond!r}")
+    expr = m.group(1)
+
+    tokens = _re.findall(
+        r"\(|\)|AND\b|OR\b|NOT\b|and\b|or\b|not\b|"
+        r"(?:eq|lt|le|gt|ge)\s*\(\s*len\s*\(\s*\w+\s*\)\s*,\s*\d+\s*\)",
+        expr,
+    )
+    if not tokens or "".join(tokens).replace(" ", "") != expr.replace(" ", ""):
+        raise ValueError(f"unsupported upsert condition {cond!r}")
+    pos = 0
+
+    def atom(tok: str) -> bool:
+        am = _re.match(
+            r"(eq|lt|le|gt|ge)\s*\(\s*len\s*\(\s*(\w+)\s*\)\s*,\s*(\d+)\s*\)",
+            tok,
+        )
+        op, var, n = am.group(1), am.group(2), int(am.group(3))
+        ln = len(uid_vars.get(var, []))
+        return {
+            "eq": ln == n,
+            "lt": ln < n,
+            "le": ln <= n,
+            "gt": ln > n,
+            "ge": ln >= n,
+        }[op]
+
+    def parse_or() -> bool:
+        nonlocal pos
+        left = parse_and()
+        while pos < len(tokens) and tokens[pos].lower() == "or":
+            pos += 1
+            right = parse_and()
+            left = left or right
+        return left
+
+    def parse_and() -> bool:
+        nonlocal pos
+        left = parse_not()
+        while pos < len(tokens) and tokens[pos].lower() == "and":
+            pos += 1
+            right = parse_not()
+            left = left and right
+        return left
+
+    def parse_not() -> bool:
+        nonlocal pos
+        if pos < len(tokens) and tokens[pos].lower() == "not":
+            pos += 1
+            return not parse_not()
+        return parse_primary()
+
+    def parse_primary() -> bool:
+        nonlocal pos
+        tok = tokens[pos]
+        if tok == "(":
+            pos += 1
+            v = parse_or()
+            if pos >= len(tokens) or tokens[pos] != ")":
+                raise ValueError(f"unbalanced parens in {cond!r}")
+            pos += 1
+            return v
+        pos += 1
+        return atom(tok)
+
+    out = parse_or()
+    if pos != len(tokens):
+        raise ValueError(f"trailing tokens in upsert condition {cond!r}")
+    return out
+
+
+# schema value types whose JSON scalars need to_val's conversion work
+# (everything else takes the flat-scalar fast path in the JSON walker)
+_SLOW_JSON_TIDS = (TypeID.DATETIME, TypeID.PASSWORD)
+
+
+def _as_list(x):
+    if x is None:
+        return []
+    return x if isinstance(x, list) else [x]
+
+
+def _json_to_val(item) -> Val:
+    if isinstance(item, bool):
+        return Val(TypeID.BOOL, item)
+    if isinstance(item, int):
+        return Val(TypeID.INT, item)
+    if isinstance(item, float):
+        return Val(TypeID.FLOAT, item)
+    if isinstance(item, list):
+        return Val(TypeID.VFLOAT, np.asarray(item, dtype=np.float32))
+    return Val(TypeID.STRING, str(item))

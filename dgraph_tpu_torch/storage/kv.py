@@ -322,9 +322,39 @@ class MemKV(KV):
                 self._wal = None
 
 
-def open_kv(path: Optional[str] = None) -> KV:
-    """Open the default store: a pure in-memory KV (the port carries the
-    in-memory store only; see ROADMAP for the disk backends)."""
-    if path is not None:
-        raise ValueError("the port's store is in-memory only: pass path=None")
-    return MemKV()
+def open_kv(
+    path: Optional[str] = None,
+    backend: Optional[str] = None,
+    encryption_key: Optional[bytes] = None,
+) -> KV:
+    """Open the default store; path=None gives a pure in-memory KV.
+
+    backend (or DGRAPH_TPU_STORAGE): "mem" (WAL-backed in-memory, default)
+    or "lsm" (spill-to-disk SSTables, storage/lsm.py — for datasets that
+    must not live wholly in RAM).
+
+    encryption_key: at-rest AES key. On the lsm backend whole entries
+    (keys + values) are sealed on disk; on the mem backend values are
+    sealed via EncryptedKV (keys, incl. index tokens, stay plaintext —
+    use lsm for full sealing)."""
+    if path is None:
+        kv: KV = MemKV()
+        if encryption_key is not None:
+            from dgraph_tpu_torch.storage.encrypted import EncryptedKV
+
+            kv = EncryptedKV(kv, encryption_key)
+        return kv
+    from dgraph_tpu_torch.x import config
+
+    backend = backend or config.get("STORAGE")
+    os.makedirs(path, exist_ok=True)
+    if backend == "lsm":
+        from dgraph_tpu_torch.storage.lsm import LsmKV
+
+        return LsmKV(os.path.join(path, "lsm"), enc_key=encryption_key)
+    kv = MemKV(wal_path=os.path.join(path, "wal.log"))
+    if encryption_key is not None:
+        from dgraph_tpu_torch.storage.encrypted import EncryptedKV
+
+        kv = EncryptedKV(kv, encryption_key)
+    return kv

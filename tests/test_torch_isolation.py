@@ -6,7 +6,9 @@
 - With both names blocked on `sys.meta_path`, a subprocess imports the
   port, alters a schema, commits a mutation and answers a query on the
   CPU; then it alters an `hnsw` vector predicate, commits three vectors
-  and answers a `similar_to`.
+  and answers a `similar_to`; then, on a store in a temporary
+  `data_dir`, it commits a JSON mutation and a conditional upsert, and
+  a second Server opened on that directory answers as the first did.
 - Every module the port copied from the reference equals it but for the
   rebinding of `dgraph_tpu` to `dgraph_tpu_torch` and for citations of
   the upstream Go sources, written `dgraph/<path>` in the port; the
@@ -57,7 +59,6 @@ REPAIRED = {
         "VectorIndex._ivf_search", "VectorIndex._ivf_search_batch",
     ],
     "query/subgraph.py": ["Executor._order_uids_topk"],  # jax.lax.top_k -> torch
-    "storage/kv.py": ["open_kv"],  # the in-memory store only
 }
 
 
@@ -136,6 +137,24 @@ s.new_txn().mutate_rdf(
 )
 out = s.query('{ v(func: similar_to(emb, 2, "[1.0, 0.1]")) { name } }')
 print(json.dumps(out["data"]))
+import shutil, tempfile
+d = tempfile.mkdtemp()
+w = Server(device="cpu", data_dir=d)
+w.alter("email: string @index(exact) @upsert .\nname: string @index(exact) .")
+w.new_txn().mutate_json(set_obj={"uid": "_:a", "name": "a", "email": "a@x"}, commit_now=True)
+for _ in range(2):
+    w.new_txn().upsert(
+        '{ v as var(func: eq(email, "b@x")) }',
+        set_rdf='_:b <email> "b@x" .\n_:b <name> "b" .', cond="@if(eq(len(v), 0))",
+    )
+q = '{ q(func: has(email)) { uid name email } }'
+before = w.query(q)["data"]
+w.kv.sync()
+w.kv.close()
+r = Server(device="cpu", data_dir=d)
+print(json.dumps([before, r.query(q)["data"]]))
+r.kv.close()
+shutil.rmtree(d)
 print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "dgraph_tpu")))
 """
 
@@ -148,11 +167,16 @@ def test_runs_with_jax_and_reference_blocked():
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
     )
     assert got.returncode == 0, got.stderr[-3000:]
-    data, similar, mods = got.stdout.strip().splitlines()[-3:]
+    data, similar, restart, mods = got.stdout.strip().splitlines()[-4:]
     assert json.loads(data) == {
         "q": [{"friend": [{"uid": "0x3"}, {"uid": "0x100000004"}]}]
     }
     assert json.loads(similar) == {"v": [{"name": "a"}, {"name": "b"}]}
+    before, after = json.loads(restart)
+    assert before == after == {"q": [
+        {"uid": "0x2", "name": "a", "email": "a@x"},
+        {"uid": "0x3", "name": "b", "email": "b@x"},
+    ]}
     assert mods == "[]"
 
 
