@@ -59,7 +59,24 @@ Phases, each of which fails the run when it fails:
      again in a new Server, times the recovery, and every answer of
      before, 16 `similar_to` reads among them, must come back byte for
      byte (K1 and KV1 must launch), with a fresh blank node above every
-     recovered uid.
+     recovered uid;
+  9. the serving front, on phase 4's and phase 7's servers (kept alive
+     for it): (9b) the plan cache over (b)'s filtered level rooted at
+     each level-1 uid, with PLAN_CACHE_SIZE 512 and 0 (answers equal and
+     equal to numpy); (9d) `query_rdf` of (a) and (b), device path ==
+     host path byte for byte, one triple per edge of the JSON answer;
+     (9c) the result cache over (a)-(d) (hits equal misses), then one
+     committed edge that the next (b), a miss, must show; (9a) 16 client
+     threads x 64 plain `similar_to` reads on `emb` (IVF) and `emb_small`
+     (brute) at BATCH_WINDOW_US 0 and 200, every answer equal to the same
+     query's solo answer, with QPS, p50/p99, the coalesced batches and the
+     card's idle share over one traced window; (9e) the same clients with
+     ADMISSION=1 and MAX_INFLIGHT=4 (some shed, with the retryable error;
+     every admitted answer equal to its solo answer); (9f) ACL and audit:
+     a reader of `name` alone is refused `emb` and answered on `name` as
+     with ACL off. K1 is held against its plain version at every shape
+     these reads gave it, KV1 and KV2 at every shape (the coalesced
+     widths 2-4 among them).
 
 `--profile` adds, for the named queries (a-d of phase 4, e-i of phase
 7), where one warm run's time goes: host functions by own time
@@ -174,6 +191,19 @@ def expected(g, name):
     }
 
 
+def json_edges(data) -> int:
+    """The uid edges of a JSON answer: the objects in lists below its root
+    blocks. For queries that ask for no value, as (a) and (b), these are
+    the triples its RDF form must hold."""
+    def count(v):
+        if isinstance(v, list):
+            return sum(1 + count(o) for o in v if isinstance(o, dict))
+        if isinstance(v, dict):
+            return sum(count(x) for x in v.values())
+        return 0
+    return sum(count(o) for rows in data.values() for o in rows)
+
+
 def extract(name, data):
     """The comparable part of a response's `data`."""
     level2 = [o for l1 in data["q"][0]["child"] for o in l1["child"]]
@@ -192,20 +222,25 @@ def extract(name, data):
 
 class _Capture:
     """Keeps the largest set of member-sweep inputs the main path hands
-    the wrapper (cloned), delegating every call unchanged."""
+    the wrapper and the first of each shape (n, pa, pb), cloned,
+    delegating every call unchanged."""
 
     def __init__(self, member_sweep):
         self.ms = member_sweep
         self.real = member_sweep.membership_batch
         self.args = None
         self.shapes = []
+        self.by_shape = {}
 
     def __call__(self, A, LA, B, LB):
-        self.shapes.append((int(A.shape[0]), int(A.shape[1]), int(B.shape[1])))
+        shape = (int(A.shape[0]), int(A.shape[1]), int(B.shape[1]))
+        self.shapes.append(shape)
+        if shape not in self.by_shape:
+            self.by_shape[shape] = tuple(t.clone() for t in (A, LA, B, LB))
         if self.args is None or A.numel() + B.numel() > sum(
             t.numel() for t in self.args[::2]
         ):
-            self.args = tuple(t.clone() for t in (A, LA, B, LB))
+            self.args = self.by_shape[shape]  # sizes follow the shape
         return self.real(A, LA, B, LB)
 
     def __enter__(self):
@@ -269,12 +304,14 @@ def profile_query(server, q, log=print, top=12, reps=5):
             f"{e.key[:90]}")
 
 
-def serve(device="cuda", fanout=100, pool=200_000, reps=3, log=print, profile=()):
+def serve(device="cuda", fanout=100, pool=200_000, reps=3, log=print, profile=(),
+          keep=False):
     """Load the fan-out graph into a port Server on `device` and answer
     QUERIES on the forced device path (member sweep on) and on the host
     path; every answer is held to the numpy reference. Returns the
     measurements, the kernel counts of the counted run and the captured
-    member-sweep inputs. Queries named in `profile` are profiled on the
+    member-sweep inputs, and with `keep` the server and the graph (phase
+    9 serves them again). Queries named in `profile` are profiled on the
     device path afterwards (card only)."""
     import torch
 
@@ -293,27 +330,15 @@ def serve(device="cuda", fanout=100, pool=200_000, reps=3, log=print, profile=()
         f"edges, pool {pool}, {len(g['hot'])} hot) loaded in {load_s:.3f}s "
         "through Server.new_txn().mutate_rdf")
 
-    saved = (dispatch._FORCE_DEVICE, dispatch._USE_PALLAS, dispatch._DEVICE_MIN_TOTAL)
-
-    def device_path():
-        dispatch._FORCE_DEVICE, dispatch._USE_PALLAS = True, True
-        dispatch._DEVICE_MIN_TOTAL = saved[2]
-
-    def host_path():
-        # no set op on the card: every size stays on the host loops
-        dispatch._FORCE_DEVICE, dispatch._USE_PALLAS = False, False
-        dispatch._DEVICE_MIN_TOTAL = 1 << 62
-
     def count():
         return member_sweep.LAUNCHES if on_card else member_sweep.PLAIN_CALLS
 
     out = {"load_s": load_s, "n_quads": nq, "queries": {}}
-    try:
+    with forced_device():
         if on_card:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         # the counted run: each query once, counts zeroed just before
-        device_path()
         member_sweep.LAUNCHES = member_sweep.PLAIN_CALLS = 0
         answers = {}
         per_query = {}
@@ -338,13 +363,12 @@ def serve(device="cuda", fanout=100, pool=200_000, reps=3, log=print, profile=()
                 ms_dev.append((time.perf_counter() - t) * 1e3)
                 if again != answers[name]:
                     raise AssertionError(f"query {name}: device path not stable")
-            host_path()
             ms_host = []
-            for _ in range(reps):
-                t = time.perf_counter()
-                host = _run_query(server, q)
-                ms_host.append((time.perf_counter() - t) * 1e3)
-            device_path()
+            with forced_device(False):  # no set op on the card
+                for _ in range(reps):
+                    t = time.perf_counter()
+                    host = _run_query(server, q)
+                    ms_host.append((time.perf_counter() - t) * 1e3)
             if host != answers[name]:
                 raise AssertionError(f"query {name}: device path != host path")
             want = expected(g, "a" if name == "a" else "b")
@@ -358,8 +382,8 @@ def serve(device="cuda", fanout=100, pool=200_000, reps=3, log=print, profile=()
         for name in profile:
             log(f"profile of query ({name}) on the device path:")
             profile_query(server, QUERIES[name], log=lambda m: log("  " + m))
-    finally:
-        dispatch._FORCE_DEVICE, dispatch._USE_PALLAS, dispatch._DEVICE_MIN_TOTAL = saved
+    if keep:
+        out["server"], out["graph"] = server, g
     return out
 
 
@@ -1051,11 +1075,12 @@ class _VecCapture:
 
 def serve_vectors(device="cuda", n=1_000_000, d=768, n_named=10_000, n_small=100_000,
                   nq=64, k=10, reps=3, min_recall=0.90, ivf_threshold=None,
-                  n_allow=20, log=print, profile=()):
+                  n_allow=20, log=print, profile=(), keep=False):
     """Phase 7: load the corpus into a port Server on `device`, serve the
     five vector reads, check them (exact top-k, recall, the CPU float
     path, the kernels' launches) and time them. Returns the measurements,
-    the kernel counts of the counted run and the captured kernel inputs.
+    the kernel counts of the counted run and the captured kernel inputs,
+    and with `keep` the server (phase 9 serves it again).
     `ivf_threshold` overrides the index's (a rehearsal at a small n).
     Read (i) filters `emb_small` to the `n_allow` uids farthest from the
     query, so its pool widens 4x a step up to the whole live set."""
@@ -1258,6 +1283,8 @@ def serve_vectors(device="cuda", n=1_000_000, d=768, n_named=10_000, n_small=100
         log(f"profile of query ({name}):")
         profile_query(server, runs[name], log=lambda m: log("  " + m))
     out["small"] = (V[:n_small].copy(), Qs)  # phase 8 commits these rows
+    if keep:
+        out["server"], out["named"] = server, n  # uid n has a name
     return out
 
 
@@ -1756,6 +1783,352 @@ def serve_writes(device, data_dir, V, Q, fanout=100, pool=200_000,
 
 
 # ---------------------------------------------------------------------------
+# The serving front (phase 9)
+# ---------------------------------------------------------------------------
+
+# (9b): query (b)'s filtered level, rooted at one level-1 uid
+ROOTED_B = ('{{ q(func: uid({})) {{ child {{ uid child @filter('
+            'eq(tag, "hot")) {{ uid }} }} }} }}')
+
+
+@contextlib.contextmanager
+def knobs(**values):
+    """The port's DGRAPH_TPU_* knobs set for the block (it reads them
+    live), then put back as they were."""
+    import os
+
+    from dgraph_tpu_torch.x import config
+
+    saved = {n: os.environ.get(config.REGISTRY[n].env) for n in values}
+    for n, v in values.items():
+        config.set_env(n, v)
+    try:
+        yield
+    finally:
+        for n, v in saved.items():
+            if v is None:
+                config.unset_env(n)
+            else:
+                os.environ[config.REGISTRY[n].env] = v
+
+
+@contextlib.contextmanager
+def forced_device(on=True):
+    """Every set op of the port on the device path with the member sweep
+    on, or (on=False) every size on the host loops; restored after."""
+    from dgraph_tpu_torch.query import dispatch
+
+    saved = (dispatch._FORCE_DEVICE, dispatch._USE_PALLAS, dispatch._DEVICE_MIN_TOTAL)
+    dispatch._FORCE_DEVICE = dispatch._USE_PALLAS = on
+    if not on:
+        dispatch._DEVICE_MIN_TOTAL = 1 << 62
+    try:
+        yield
+    finally:
+        dispatch._FORCE_DEVICE, dispatch._USE_PALLAS, dispatch._DEVICE_MIN_TOTAL = saved
+
+
+def _p50_p99(ms):
+    return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
+
+
+def front_graph(server, g, log=print):
+    """(9b)-(9d) on phase 4's server, on the forced device path: the plan
+    cache over (b)'s filtered level rooted at each level-1 uid, twice,
+    with PLAN_CACHE_SIZE 512 and 0; `query_rdf` of (a) and (b), device
+    path == host path, one triple per edge of the JSON answer; the result
+    cache over (a)-(d) (hits == misses), then one committed edge that (b)
+    must show on its next read, a miss. Returns the measurements, the K1
+    count of these runs (zeroed just before) and K1's inputs per shape."""
+    from dgraph_tpu_torch.ops import member_sweep
+    from dgraph_tpu_torch.utils.observe import METRICS
+
+    on_card = server.device.type == "cuda"
+
+    def count():
+        return member_sweep.LAUNCHES if on_card else member_sweep.PLAIN_CALLS
+
+    f, want_b = g["f"], expected(g, "b")
+    roots = [hex(int(u)) for u in g["l1"]]
+    out = {"plan": {}, "rdf": {}}
+    with forced_device(), _Capture(member_sweep) as cap:
+        member_sweep.LAUNCHES = member_sweep.PLAIN_CALLS = 0
+        # two orders of the same 2 x len(roots) queries: every root, then
+        # every root again ("cycle"), and each root twice in a row
+        # ("repeat"); the plan cache keeps 16 literal bindings per shape,
+        # and each arm starts from a new epoch (as after a commit)
+        orders = {"cycle": roots + roots, "repeat": [r for r in roots for _ in (0, 1)]}
+        answers = {}
+        for size in (512, 0):
+            for how, seq in orders.items():
+                server.serving.plan_cache.invalidate()
+                with knobs(PLAN_CACHE_SIZE=size):
+                    h0 = METRICS.value("plan_cache_hit_total")
+                    m0 = METRICS.value("plan_cache_miss_total")
+                    c0, parse_ns, got = count(), [], {}
+                    for r in seq:
+                        res = server.query(ROOTED_B.format(r), want="raw")
+                        parse_ns.append(res["extensions"]["server_latency"]["parsing_ns"])
+                        if got.setdefault(r, res["data"].raw) != res["data"].raw:
+                            raise AssertionError(f"(9b): root {r} answered two ways")
+                    hits = METRICS.value("plan_cache_hit_total") - h0
+                    misses = METRICS.value("plan_cache_miss_total") - m0
+                answers[size, how] = got
+                out["plan"][f"{size} {how}"] = {
+                    "hit_rate": hits / max(1, hits + misses), "hits": int(hits),
+                    "parse_ms": float(np.mean(parse_ns)) / 1e6, "sweeps": count() - c0}
+        if any(a != answers[512, "cycle"] for a in answers.values()):
+            raise AssertionError("(9b): answers differ with the plan cache on and off")
+        for i, r in enumerate(roots):
+            l2 = json.loads(answers[512, "cycle"][r])["q"][0]["child"]
+            got = {int(o["uid"], 16): [int(x["uid"], 16) for x in o.get("child", [])]
+                   for o in l2}
+            if got != {int(u): want_b[int(u)] for u in g["l2"][i * f : (i + 1) * f]}:
+                raise AssertionError(f"(9b): the query rooted at {r} != numpy")
+        if out["plan"]["512 repeat"]["hits"] != len(roots) or out["plan"]["0 cycle"]["hits"]:
+            raise AssertionError(f"(9b): plan cache {out['plan']}")
+        log(f"(9b) (b)'s filtered level rooted at each of {len(roots)} level-1 uids, twice: "
+            f"equal with PLAN_CACHE_SIZE 512 and 0 and to numpy; {out['plan']}")
+
+        for name in ("a", "b"):
+            c0 = count()
+            t = time.perf_counter()
+            rdf = server.query_rdf(QUERIES[name])
+            dev_ms = (time.perf_counter() - t) * 1e3
+            sweeps = count() - c0
+            with forced_device(False):
+                host = server.query_rdf(QUERIES[name])
+            edges = json_edges(json.loads(_run_query(server, QUERIES[name])))
+            triples = len(rdf.splitlines())
+            if rdf != host or triples != edges:
+                raise AssertionError(f"(9d) {name}: device path == host path {rdf == host}, "
+                                     f"{triples} triples for {edges} JSON edges")
+            out["rdf"][name] = {"triples": triples, "bytes": len(rdf), "ms": dev_ms,
+                                "sweeps": sweeps}
+        if out["rdf"]["b"]["sweeps"] < 1:
+            raise AssertionError("(9d): the member sweep did not launch in query_rdf (b)")
+        log(f"(9d) query_rdf of (a) and (b): device path == host path byte for byte, one "
+            f"triple per edge of the JSON answer; {out['rdf']}")
+
+        with knobs(RESULT_CACHE_SIZE=64):
+            h0 = METRICS.value("result_cache_hit_total")
+            miss, hit, ms = {}, {}, {"miss": {}, "hit": {}}
+            for into, arm in ((miss, "miss"), (hit, "hit")):
+                for name, q in QUERIES.items():
+                    t = time.perf_counter()
+                    into[name] = _run_query(server, q)
+                    ms[arm][name] = (time.perf_counter() - t) * 1e3
+            hits = METRICS.value("result_cache_hit_total") - h0
+            if hit != miss or hits != len(QUERIES):
+                raise AssertionError(f"(9c): {hits} hits; hit bytes == miss bytes "
+                                     f"{hit == miss}")
+            l2 = int(g["l2"][0])
+            new = next(int(u) for u in g["hot"] if int(u) not in want_b[l2])
+            server.new_txn().mutate_rdf(set_rdf=f"<{hex(l2)}> <child> <{hex(new)}> .",
+                                        commit_now=True)
+            h1 = METRICS.value("result_cache_hit_total")
+            after = extract("b", json.loads(_run_query(server, QUERIES["b"])))
+            if METRICS.value("result_cache_hit_total") != h1:
+                raise AssertionError("(9c): the read after a commit was a hit")
+            if after != {**want_b, l2: sorted(want_b[l2] + [new])}:
+                raise AssertionError("(9c): the read after the commit misses its edge")
+        out["result_cache"] = {"hits": int(hits), "ms": ms, "edge": [hex(l2), hex(new)]}
+        log(f"(9c) RESULT_CACHE_SIZE=64 over (a)-(d): {int(hits)} hits, hit bytes == miss bytes; "
+            f"after <{hex(l2)}> <child> <{hex(new)}> committed, (b) missed and shows it; "
+            f"ms {ms}")
+    out["sweeps"] = count()
+    out["sweep_shapes"] = cap.by_shape
+    return out
+
+
+def front_vectors(server, Qs, named, k=10, clients=16, per_client=64, trace_per_client=8,
+                  log=print):
+    """(9a), (9e), (9f) on phase 7's server. (9a): `clients` threads ask
+    `per_client` plain top-k `similar_to` each (Qs in turn), on `emb` and
+    `emb_small`, at BATCH_WINDOW_US 0 and 200; every answer must equal
+    the same query's solo answer. (9e): ADMISSION=1, MAX_INFLIGHT=4 under
+    the same clients: some must be shed with the retryable error, every
+    admitted answer must equal its solo answer. (9f): ACL and audit on;
+    a reader of `name` alone is refused a query that touches `emb` and
+    answers a query on `name` as with ACL off; `named` is a uid with a
+    name. Returns the measurements, the KV1 and KV2 counts of these runs
+    (zeroed just before) and their inputs per shape."""
+    import tempfile
+
+    import torch
+
+    from dgraph_tpu_torch.acl.acl import READ, AclError
+    from dgraph_tpu_torch.ops import ivf_scan, vector_topk
+    from dgraph_tpu_torch.serving import TooManyRequestsError
+    from dgraph_tpu_torch.utils.observe import METRICS
+
+    on_card = server.device.type == "cuda"
+
+    def launches():
+        if on_card:
+            return {"vector_topk": vector_topk.LAUNCHES, "ivf_slab_scan": ivf_scan.LAUNCHES}
+        return {"vector_topk": vector_topk.PLAIN_CALLS, "ivf_slab_scan": ivf_scan.PLAIN_CALLS}
+
+    texts = [_vec_text(q) for q in Qs]
+    reads = {p: [f'{{ q(func: similar_to({p}, {k}, "{t}")) {{ uid }} }}' for t in texts]
+             for p in ("emb", "emb_small")}
+    order = [[(c * per_client + j) % len(Qs) for j in range(per_client)]
+             for c in range(clients)]
+    out = {"arms": {}}
+
+    def drive(pred, work, n=per_client):
+        """work(client, query index) on `clients` threads, each over its
+        first n queries; returns (wall s, search_batch widths)."""
+        import threading
+
+        idx = server.vector_indexes[pred]
+        real, widths = idx.search_batch, []
+        wrapped = "search_batch" in vars(idx)
+
+        def recorded(Q, kk):
+            widths.append(len(Q))
+            return real(Q, kk)
+
+        barrier = threading.Barrier(clients)
+
+        def client(c):
+            barrier.wait()
+            for i in order[c][:n]:
+                work(c, i)
+
+        idx.search_batch = recorded
+        try:
+            t0 = time.perf_counter()
+            _threads(client, [(c,) for c in range(clients)])
+            return time.perf_counter() - t0, widths
+        finally:
+            if wrapped:
+                idx.search_batch = real
+            else:
+                del idx.search_batch
+
+    with _VecCapture() as cap:
+        vector_topk.LAUNCHES = vector_topk.PLAIN_CALLS = 0
+        ivf_scan.LAUNCHES = ivf_scan.PLAIN_CALLS = 0
+        solo = {p: [_run_query(server, q) for q in qs] for p, qs in reads.items()}
+        nq = clients * per_client
+        for pred in ("emb", "emb_small"):
+            for window in (0, 200):
+                lat, bad = [], []
+
+                def ask(c, i, pred=pred, lat=lat, bad=bad):
+                    t = time.perf_counter()
+                    got = _run_query(server, reads[pred][i])
+                    lat.append((time.perf_counter() - t) * 1e3)
+                    if got != solo[pred][i]:
+                        bad.append(i)
+
+                c0, l0 = METRICS.value("batch_coalesced_total"), launches()
+                with knobs(BATCH_WINDOW_US=window):
+                    wall, widths = drive(pred, ask)
+                if bad:
+                    raise AssertionError(f"(9a) {pred} window {window}: {len(bad)} answers "
+                                         f"!= their solo answers, queries {sorted(set(bad))[:8]}")
+                wide = [w for w in widths if w > 1]
+                l1 = launches()
+                p50, p99 = _p50_p99(lat)
+                out["arms"][f"{pred} {window}"] = arm = {
+                    "qps": nq / wall, "p50_ms": p50, "p99_ms": p99,
+                    "batch_coalesced_total": METRICS.value("batch_coalesced_total") - c0,
+                    "coalesced_batches": len(wide),
+                    "mean_width": float(np.mean(wide)) if wide else 1.0,
+                    "widths": sorted(set(widths)),
+                    "kv1_per_query": (l1["vector_topk"] - l0["vector_topk"]) / nq,
+                    "kv2_per_query": (l1["ivf_slab_scan"] - l0["ivf_slab_scan"]) / nq}
+                if window and pred == "emb" and not wide:
+                    raise AssertionError(f"(9a) {pred}: nothing coalesced at window {window}")
+                log(f"(9a) {pred}, BATCH_WINDOW_US={window}, {clients} clients x {per_client}: "
+                    f"every answer == its solo answer; {json.dumps(arm)}")
+        if on_card:
+            # the card's idle share over one traced window of the 200 us arm
+            from torch.profiler import ProfilerActivity, profile
+
+            with knobs(BATCH_WINDOW_US=200), profile(activities=[ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                wall, _ = drive("emb", lambda c, i: _run_query(server, reads["emb"][i]),
+                                n=trace_per_client)
+                torch.cuda.synchronize()
+            busy = sum(e.self_device_time_total for e in prof.key_averages()
+                       if str(getattr(e, "device_type", "")).endswith("CUDA")) / 1e6
+            out["trace"] = {"queries": clients * trace_per_client, "wall_s": wall,
+                            "busy_s": busy, "idle_share": 1 - busy / wall}
+            log(f"(9a) traced window, emb at 200 us: {out['trace']}")
+
+        shed, bad = [0] * clients, []
+
+        def admitted(c, i):
+            try:
+                got = _run_query(server, reads["emb"][i])
+            except TooManyRequestsError as e:
+                if not (e.retryable and e.code == "too_many_requests"):
+                    bad.append(repr(e))
+                shed[c] += 1
+                return
+            if got != solo["emb"][i]:
+                bad.append(i)
+
+        s0 = METRICS.value("admission_shed_total")
+        with knobs(ADMISSION=True, MAX_INFLIGHT=4, BATCH_WINDOW_US=200):
+            wall, _ = drive("emb", admitted)
+        out["admission"] = {"shed": sum(shed), "admitted": nq - sum(shed), "wall_s": wall,
+                            "shed_metric": METRICS.value("admission_shed_total") - s0}
+        if bad or not sum(shed) or out["admission"]["shed_metric"] != sum(shed):
+            raise AssertionError(f"(9e): {out['admission']}, wrong answers or errors {bad[:8]}")
+        log(f"(9e) ADMISSION=1, MAX_INFLIGHT=4, {clients} clients: every shed raised the "
+            f"retryable TooManyRequestsError, every admitted answer == its solo answer; "
+            f"{out['admission']}")
+
+        name_q = f'{{ q(func: uid({hex(named)})) {{ uid name }} }}'
+        plain = _run_query(server, name_q)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_audit_") as d:
+            server.enable_audit(d)
+            server.enable_acl(secret=b"chip-smoke-acl-secret-0123456789")
+            groot = server.login("groot", "password")["accessJwt"]
+            server.acl.add_user("reader", "readerpw")
+            server.acl.add_group("readers")
+            server.acl.add_user_to_group("reader", "readers")
+            server.acl.set_rule("readers", "name", READ)
+            tok = server.login("reader", "readerpw")["accessJwt"]
+            try:
+                server.query(reads["emb"][0], access_jwt=tok)
+                raise AssertionError("(9f): a reader of name alone was answered on emb")
+            except AclError:
+                pass
+            mine = server.query(name_q, access_jwt=tok, want="raw")["data"].raw
+            guardian = server.query(reads["emb"][0], access_jwt=groot, want="raw")["data"].raw
+            if mine != plain or b'"name"' not in mine or guardian != solo["emb"][0]:
+                raise AssertionError(f"(9f): {mine} != {plain} with ACL off, or groot's "
+                                     "similar_to != its answer with ACL off")
+            out["acl"] = {"audit_lines": len(server.audit.read_all())}
+        log(f"(9f) ACL on: emb denied to a reader of name, name answered as with ACL off, "
+            f"groot's similar_to unchanged; audit lines {out['acl']['audit_lines']}")
+    out["launches"] = launches()
+    out["captured"] = (cap.topk, cap.slabs)
+    return out
+
+
+def sweep_shapes_equal(by_shape):
+    """K1 against its plain version, exactly, on the inputs of every
+    shape the main path gave it. Returns {shape: mismatches}."""
+    import torch
+
+    from dgraph_tpu_torch.ops import member_sweep
+
+    res = {}
+    for shape, (A, LA, B, LB) in sorted(by_shape.items()):
+        got = member_sweep.membership_batch(A, LA, B, LB)
+        want = member_sweep.membership_batch_plain(A, LA, B, LB)
+        torch.cuda.synchronize()
+        res[shape] = int((got != want).sum())
+    return res
+
+
+# ---------------------------------------------------------------------------
 # KV1's regime switch, measured (--crossover)
 # ---------------------------------------------------------------------------
 
@@ -1904,7 +2277,7 @@ def main(argv=None) -> int:
 
     print("[4] serving the fan-out graph on the card", flush=True)
     s = serve("cuda", log=lambda m: print("    " + m, flush=True),
-              profile=tuple(c for c in opts.profile if c in QUERIES))
+              profile=tuple(c for c in opts.profile if c in QUERIES), keep=True)
     for name, r in s["queries"].items():
         print(f"    query ({name}): device path {r['device_ms']:.3f} ms, host path "
               f"{r['host_ms']:.3f} ms (warm medians), {r['bytes']} bytes; "
@@ -1938,7 +2311,7 @@ def main(argv=None) -> int:
 
     print("[7] serving similar_to over 1000000 x 768 float32 on the card", flush=True)
     v = serve_vectors("cuda", log=lambda m: print("    " + m, flush=True),
-                      profile=tuple(c for c in opts.profile if c in "efghi"))
+                      profile=tuple(c for c in opts.profile if c in "efghi"), keep=True)
     for name, what in (("e", "similar_to(emb) IVF"), ("f", "similar_to(emb, ef: 64) IVF"),
                        ("g", "similar_to(emb_small) brute"),
                        ("h", "search_batch of 64 on emb, brute"),
@@ -1956,7 +2329,7 @@ def main(argv=None) -> int:
 
     print("[8] the write path on the card: JSON load, upserts, group commit, restart; "
           "at " + card, flush=True)
-    small_V, small_Q = v.pop("small")
+    small_V, all_Q = v.pop("small")
     writes = {}
     for arm in ("mem", "lsm"):
         config.set_env("STORAGE", arm)
@@ -1964,11 +2337,11 @@ def main(argv=None) -> int:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
                 print(f"    [{arm}] DGRAPH_TPU_STORAGE={arm}, data_dir {d}, {len(small_V)} "
                       "vectors", flush=True)
-                writes[arm] = serve_writes("cuda", d, small_V, small_Q,
+                writes[arm] = serve_writes("cuda", d, small_V, all_Q,
                                            log=lambda m: print("      " + m, flush=True))
         finally:
             config.unset_env("STORAGE")
-    del small_V, small_Q
+    del small_V
     for arm, w in writes.items():
         print(f"    [{arm}] " + json.dumps({
             "load_edges_per_s": w["load"]["per_s"], "vectors_s": w["load"]["vectors_s"],
@@ -1977,6 +2350,29 @@ def main(argv=None) -> int:
             "abort_share": w["u3"]["abort_share"], "batch_mean": w["batch_mean"],
             "vectors": w["load"]["vectors"], "disk_bytes": w["disk_bytes"],
             "recover_s": w["recover"], "read_ms_after_restart": w["read_ms"]}), flush=True)
+    print(f"    total {time.perf_counter() - t_start:.3f}s", flush=True)
+
+    print("[9] the serving front on the card: plan cache, result cache, query_rdf on "
+          "phase 4's server; coalesced similar_to, admission, ACL and audit on phase 7's; "
+          "at " + card, flush=True)
+    front = {"graph": front_graph(s.pop("server"), s.pop("graph"),
+                                  log=lambda m: print("    " + m, flush=True))}
+    bad = {k: n for k, n in sweep_shapes_equal(front["graph"]["sweep_shapes"]).items() if n}
+    if bad:
+        raise AssertionError(f"(9) K1 != plain at shapes (n, pa, pb): {bad}")
+    print(f"    K1 launches {front['graph']['sweeps']}, equal to plain at every shape "
+          f"(n, pa, pb) it took: {sorted(front['graph'].pop('sweep_shapes'))}", flush=True)
+    front["vectors"] = front_vectors(v.pop("server"), all_Q, named=v["named"],
+                                     log=lambda m: print("    " + m, flush=True))
+    del all_Q
+    launches9 = front["vectors"]["launches"]
+    if min(launches9.values()) < 1:
+        raise AssertionError(f"(9) a vector kernel did not launch: {launches9}")
+    served9 = served_kernels(front["vectors"].pop("captured"))
+    for site, r in served9.items():
+        print(f"    {site} ((9a), (9e), (9f) inputs): equal to plain; {_fmt(r)}", flush=True)
+    print("    [9] " + json.dumps({"launches": {"member_sweep": front["graph"]["sweeps"],
+                                               **launches9}, **front}), flush=True)
     print(f"    total {time.perf_counter() - t_start:.3f}s", flush=True)
 
     # the kernels' rows: each at the served shape that moves most bytes
@@ -1990,11 +2386,12 @@ def main(argv=None) -> int:
         "source": "dgraph_tpu_torch/csrc/member_sweep.cu",
         "replaces": "dgraph_tpu/ops/pallas_setops.py:53",
         "launches": s["launches"] + sum(w["u2"]["sweeps"] + w["after_restart_launches"][
-            "member_sweep"] for w in writes.values()),
+            "member_sweep"] for w in writes.values()) + front["graph"]["sweeps"],
         "launches_by_path": {"4": s["launches"], **{
             f"8 {arm} {step}": n for arm, w in writes.items() for step, n in (
                 ("u2", w["u2"]["sweeps"]),
-                ("restart", w["after_restart_launches"]["member_sweep"]))}},
+                ("restart", w["after_restart_launches"]["member_sweep"]))},
+            "9": front["graph"]["sweeps"]},
         "max_abs_err": main["max_abs_err"],
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],
@@ -2011,6 +2408,7 @@ def main(argv=None) -> int:
         if name == "vector_topk":
             by_path.update({f"8 {arm} restart": w["after_restart_launches"]["vector_topk"]
                             for arm, w in writes.items()})
+        by_path["9"] = launches9[name]
         rows.append({
             "name": name, "route": "cuda", "source": f"dgraph_tpu_torch/csrc/{src}",
             "replaces": ref, "launches": sum(by_path.values()), "launches_by_path": by_path,

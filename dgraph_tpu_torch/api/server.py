@@ -2,29 +2,32 @@
 
 Port of `dgraph_tpu/api/server.py`: `alter`, transactions that take RDF
 and JSON mutations (`mutate_rdf`, `mutate_json`) and upsert blocks
-(`upsert`, `upsert_json`), `query`, and commits through group commit
-(worker/groupcommit.py; DGRAPH_TPU_GROUP_COMMIT=0 gives the serial
-path). `Server(data_dir=...)` keeps its store on disk (the WAL-backed
-in-memory store, or the SSTable store with DGRAPH_TPU_STORAGE=lsm,
-optionally encrypted) and recovers the schema, the timestamp and uid
-leases and the vector indexes when it opens one again. Queries run
-through dql.parse -> query.Executor -> the streaming JSON encoder, with
-the set-op data plane on the dispatcher's torch device. Vector
-predicates (`float32vector @index(hnsw(...))`) get a
+(`upsert`, `upsert_json`), `query` and `query_rdf`, and commits through
+group commit (worker/groupcommit.py; DGRAPH_TPU_GROUP_COMMIT=0 gives the
+serial path). `Server(data_dir=...)` keeps its store on disk (the
+WAL-backed in-memory store, or the SSTable store with
+DGRAPH_TPU_STORAGE=lsm, optionally encrypted) and recovers the schema,
+the timestamp and uid leases and the vector indexes when it opens one
+again. Queries pass the serving front (serving/: the plan cache,
+admission, the snapshot-keyed result cache, per-shape digests and the
+cross-query micro-batcher, which folds concurrent plain `similar_to`
+calls into one `search_batch`), then dql -> query.Executor -> the
+streaming JSON encoder, with the set-op data plane on the dispatcher's
+torch device. Commits and alters advance the snapshot watermark and
+bump the front's epoch, so no cached plan or result outlives them.
+Vector predicates (`float32vector @index(hnsw(...))`) get a
 `models.vector.VectorIndex` on the same device, fed at commit and rebuilt
-on restart, so `similar_to` is served as in the reference.
+on restart. `enable_acl` / `enable_audit` / `login` bring the reference's
+ACL (every entry point takes an `access_jwt`, whose namespace the
+mutation walkers write into) and its audit log.
 
-Left out of the port so far (see ROADMAP): the serving front (plan
-cache, admission, micro-batcher, result cache, digests), so commits and
-alters make none of the reference's `serving.admit_write` /
-`release_write` / `on_commit` calls; ACL and audit, so the namespace is
-always the galaxy one and no entry point takes an `access_jwt`; CDC and
-subscriptions; RDF output.
+Left out of the port so far (see ROADMAP): CDC and subscriptions.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import threading
 import time
 from typing import Dict, List, Optional
@@ -32,9 +35,11 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from dgraph_tpu_torch import dql
+from dgraph_tpu_torch.acl.acl import READ, WRITE, AclError, AclManager
+from dgraph_tpu_torch.audit.audit import AuditLog
 from dgraph_tpu_torch.loaders.rdf import NQuad, parse_rdf
 from dgraph_tpu_torch.posting import colwrite
-from dgraph_tpu_torch.posting.lists import LocalCache, Txn
+from dgraph_tpu_torch.posting.lists import LocalCache, Txn, cache_tier_snapshot
 from dgraph_tpu_torch.posting.memlayer import MemoryLayer
 from dgraph_tpu_torch.posting.mutation import (
     DirectedEdge,
@@ -45,9 +50,14 @@ from dgraph_tpu_torch.posting.mutation import (
 )
 from dgraph_tpu_torch.posting.pl import OP_DEL, OP_SET, encode_deltas
 from dgraph_tpu_torch.query import dispatch
+from dgraph_tpu_torch.query.functions import QueryBudgetError
+from dgraph_tpu_torch.query.outputrdf import encode_rdf
 from dgraph_tpu_torch.query.streamjson import encode_response_data
 from dgraph_tpu_torch.query.subgraph import Executor
 from dgraph_tpu_torch.schema.schema import State, parse_schema
+from dgraph_tpu_torch.serving import ServingFront
+from dgraph_tpu_torch.serving.digest import DIGESTS
+from dgraph_tpu_torch.serving.resultcache import hit_response
 from dgraph_tpu_torch.storage.kv import KV, open_kv
 from dgraph_tpu_torch.types.types import TypeID, Val
 from dgraph_tpu_torch.utils import observe
@@ -75,35 +85,91 @@ class TxnHandle:
         if not read_only:
             colwrite.maybe_enable(self.txn, server)
 
-    def query(self, q: str) -> dict:
+    def query(self, q: str, access_jwt: Optional[str] = None) -> dict:
         """Query within this txn's snapshot (sees own uncommitted writes)."""
         self.txn.materialize_cols()  # read-your-writes over columns
-        return self.server._query_parsed(
-            dql.parse(q), self.txn.cache, keys.GALAXY_NS
-        )
+        blocks = dql.parse(q)
+        ns = keys.GALAXY_NS
+        allowed = None
+        if self.server.acl is not None:
+            if access_jwt is None:
+                raise AclError("no access token (ACL enabled)")
+            claims = self.server.acl.claims(access_jwt)
+            ns = int(claims.get("namespace", 0))
+            self.server.acl.authorize_preds(
+                access_jwt, _query_preds(blocks), READ, claims=claims
+            )
+            allowed = self.server.acl.readable_preds(claims)
+        return self.server._query_parsed(blocks, self.txn.cache, ns, allowed)
 
     def mutate_rdf(
-        self, set_rdf: str = "", del_rdf: str = "", commit_now: bool = False
+        self,
+        set_rdf: str = "",
+        del_rdf: str = "",
+        commit_now: bool = False,
+        access_jwt: Optional[str] = None,
     ) -> Dict[str, str]:
-        uids = self.server._apply_rdf(self.txn, set_rdf, del_rdf)
+        set_nqs, del_nqs = parse_rdf(set_rdf), parse_rdf(del_rdf)
+        body = f"set:{set_rdf!r} del:{del_rdf!r}"
+        ns, user = self.server._authorize_mutation(
+            access_jwt,
+            sorted({nq.predicate for nq in set_nqs + del_nqs}),
+            body,
+        )
+        self.txn.tenant_ns = ns  # per-tenant commit SLO slice
+        uids = self.server._apply_nquads(self.txn, set_nqs, del_nqs, ns)
         if commit_now:
             self.commit()
         return uids
 
-    def mutate_json(self, set_obj=None, del_obj=None, commit_now: bool = False):
-        """A JSON mutation (the `SetJson` / `DeleteJson` of dgo clients):
-        objects or lists of objects with "uid" refs, blank nodes as
-        "_:name". Returns the uids given to blank nodes."""
-        uids = self.server._apply_json(self.txn, set_obj, del_obj)
+    def mutate_json(
+        self,
+        set_obj=None,
+        del_obj=None,
+        commit_now: bool = False,
+        access_jwt: Optional[str] = None,
+    ):
+        if self.server.acl is None and self.server.audit is None:
+            # the common unsecured path: computing the predicate set
+            # and dumping the audit body would be pure waste per write
+            ns = keys.GALAXY_NS
+        else:
+            body = json.dumps(
+                {"set": set_obj, "delete": del_obj}, default=str
+            )
+            ns, _ = self.server._authorize_mutation(
+                access_jwt,
+                sorted(_json_preds(set_obj) | _json_preds(del_obj)),
+                body,
+            )
+        self.txn.tenant_ns = ns  # per-tenant commit SLO slice
+        uids = self.server._apply_json(self.txn, set_obj, del_obj, ns)
         if commit_now:
             self.commit()
         return uids
 
-    def _upsert_prologue(self, query: str):
-        """Shared upsert front half: run the query block in this txn's
-        snapshot, binding uid and value vars. Returns (uid_vars,
-        val_vars)."""
+    def _upsert_prologue(
+        self, query: str, mutation_preds_fn, access_jwt: Optional[str]
+    ):
+        """Shared upsert front half: ACL (READ on query preds, WRITE on
+        mutation preds, JWT namespace) + query execution binding
+        uid/val vars. `mutation_preds_fn` is called only when ACL is on
+        (computing preds means parsing the mutation — skip it for the
+        common unsecured path). Returns (ns, uid_vars, val_vars)."""
         blocks = dql.parse(query) if query.strip() else []
+        ns = keys.GALAXY_NS
+        if self.server.acl is not None:
+            if access_jwt is None:
+                raise AclError("no access token (ACL enabled)")
+            claims = self.server.acl.claims(access_jwt)
+            ns = int(claims.get("namespace", 0))
+            self.server.acl.authorize_preds(
+                access_jwt, _query_preds(blocks), READ, claims=claims
+            )
+            self.server.acl.authorize_preds(
+                access_jwt, sorted(mutation_preds_fn()), WRITE,
+                claims=claims,
+            )
         uid_vars: Dict[str, List[int]] = {}
         val_vars: Dict[str, dict] = {}
         if blocks:
@@ -111,7 +177,7 @@ class TxnHandle:
             ex = Executor(
                 self.txn.cache,
                 self.server.schema,
-                ns=keys.GALAXY_NS,
+                ns=ns,
                 vector_indexes=self.server.vector_indexes,
             )
             ex.process(blocks)
@@ -119,7 +185,7 @@ class TxnHandle:
                 k: [int(u) for u in v] for k, v in ex.uid_vars.items()
             }
             val_vars = ex.val_vars
-        return uid_vars, val_vars
+        return ns, uid_vars, val_vars
 
     def upsert(
         self,
@@ -128,30 +194,56 @@ class TxnHandle:
         del_rdf: str = "",
         cond: Optional[str] = None,
         commit_now: bool = True,
+        access_jwt: Optional[str] = None,
     ) -> Dict[str, str]:
         """Upsert block: run query, substitute uid(v)/val(v) refs in the
         mutation, apply (ref edgraph/server.go:874 buildUpsertQuery +
         dql upsert blocks). `cond` is '@if(eq(len(v), 0))'-style gate."""
-        uid_vars, val_vars = self._upsert_prologue(query)
+        def mpreds():
+                return {
+                nq.predicate for nq in parse_rdf(set_rdf) + parse_rdf(del_rdf)
+            }
+
+        ns, uid_vars, val_vars = self._upsert_prologue(
+            query, mpreds, access_jwt
+        )
         if cond is not None and not _eval_cond(cond, uid_vars):
             if commit_now:
                 self.commit()
             return {}
+
         out = self.server._apply_rdf_with_vars(
-            self.txn, set_rdf, del_rdf, uid_vars, val_vars
+            self.txn, set_rdf, del_rdf, uid_vars, val_vars, ns=ns
         )
         if commit_now:
             self.commit()
         return out
 
     def upsert_json(
-        self, query: str, mutations: List[dict], commit_now: bool = True
+        self,
+        query: str,
+        mutations: List[dict],
+        commit_now: bool = True,
+        access_jwt: Optional[str] = None,
     ) -> Dict[str, str]:
         """Multi-mutation JSON upsert: one query block binding uid vars,
         then a list of {"set": obj, "delete": obj, "cond": "@if(...)"}
         mutations applied against those bindings (ref edgraph/server.go
-        doQuery with req.Mutations[])."""
-        uid_vars, val_vars = self._upsert_prologue(query)
+        doQuery with req.Mutations[] — the shape the GraphQL rewriters
+        emit, graphql/resolve/mutation_rewriter.go UpsertMutation)."""
+        def mpreds():
+            return {
+                p
+                for m in mutations
+                for p in (
+                    _json_preds(m.get("set"))
+                    | _json_preds(m.get("delete"))
+                )
+            }
+
+        ns, uid_vars, val_vars = self._upsert_prologue(
+            query, mpreds, access_jwt
+        )
         blanks: Dict[str, int] = {}  # blank-node map SHARED across the
         # request's mutations (ref: one AssignUids per request)
         for m in mutations:
@@ -160,7 +252,7 @@ class TxnHandle:
                 continue
             self.server._apply_json_with_vars(
                 self.txn, m.get("set"), m.get("delete"), uid_vars,
-                blank=blanks, val_vars=val_vars,
+                ns=ns, blank=blanks, val_vars=val_vars,
             )
         if commit_now:
             self.commit()
@@ -205,9 +297,20 @@ class Server:
         self.slow_query_ms = float(config.get("SLOW_QUERY_MS"))
         self.mem = MemoryLayer()  # shared decoded-list read cache
         self.stats = StatsHolder()  # selectivity stats (fed on commit)
-        # snapshot watermark: the last commit made VISIBLE (published
-        # before zero.applied, the barrier read_ts waits on)
+        self.acl = None  # enabled via enable_acl() (ref --acl superflag)
+        self.audit = None  # enabled via enable_audit()
+        # the serving front: plan cache + cross-query micro-batcher +
+        # admission + result cache (serving/). _snapshot_ts is the
+        # batcher's snapshot watermark: the last commit made VISIBLE
+        # (published before zero.applied, the barrier read_ts waits
+        # on), so two fresh read timestamps covering the same watermark
+        # coalesce.
         self._snapshot_ts = 0
+        self.serving = ServingFront(
+            stats=self.stats,
+            schema_fn=lambda: self.schema,
+            last_commit_fn=lambda: self._snapshot_ts,
+        )
         self._bootstrap_schema()
         if data_dir is not None:
             self._load_persisted_state()
@@ -216,6 +319,64 @@ class Server:
         threading.Thread(
             target=lambda: __import__("dgraph_tpu_torch.native"), daemon=True
         ).start()
+
+    # -- security (ref edgraph/access.go; audit/) -----------------------------
+
+    def enable_acl(self, secret: Optional[bytes] = None, groot_password="password"):
+        self.acl = AclManager(self, secret)
+        self.acl.bootstrap(groot_password=groot_password)
+        return self.acl
+
+    def enable_audit(self, out_dir: str, key: Optional[bytes] = None):
+        self.audit = AuditLog(out_dir, key=key)
+        return self.audit
+
+    def login(self, user: str, password: str, ns: int = keys.GALAXY_NS):
+        if self.acl is None:
+            raise RuntimeError("ACL not enabled")
+        try:
+            out = self.acl.login(user, password, ns)
+            self._audit("login", user=user, ns=ns)
+            return out
+        except Exception:
+            self._audit("login", user=user, ns=ns, status="DENIED")
+            raise
+
+    def _audit(self, endpoint, user="", ns=0, body="", status="OK"):
+        if self.audit is not None:
+            self.audit.record(endpoint, user=user, ns=ns, body=body, status=status)
+
+    def _authorize(self, access_jwt, preds, need) -> int:
+        """Returns the caller's namespace (0 when ACL off)."""
+        if self.acl is None:
+            return keys.GALAXY_NS
+        if access_jwt is None:
+            raise AclError("no access token (ACL enabled)")
+        claims = self.acl.claims(access_jwt)
+        self.acl.authorize_preds(access_jwt, preds, need)
+        return int(claims.get("namespace", 0))
+
+    def _authorize_mutation(self, access_jwt, preds, audit_body):
+        """WRITE authorization + audit for any mutation entry point.
+        Returns (namespace, user)."""
+        ns, user = keys.GALAXY_NS, ""
+        if self.acl is not None:
+            try:
+                if access_jwt is None:
+                    raise AclError("no access token (ACL enabled)")
+                claims = self.acl.claims(access_jwt)
+                user = claims.get("userid", "")
+                ns = int(claims.get("namespace", 0))
+                self.acl.authorize_preds(
+                    access_jwt, preds, WRITE, claims=claims
+                )
+            except Exception:
+                self._audit(
+                    "mutate", user=user, body=audit_body, status="DENIED"
+                )
+                raise
+        self._audit("mutate", user=user, ns=ns, body=audit_body)
+        return ns, user
 
     def _apply_nquads(self, txn, set_nqs, del_nqs, ns) -> Dict[str, str]:
         blank: Dict[str, int] = {}
@@ -351,11 +512,15 @@ class Server:
     # -- alter (ref edgraph/server.go:355) -----------------------------------
 
     def alter(self, schema_text: str = "", drop_attr: str = "", drop_all: bool = False):
+        self.serving.on_commit()  # schema changes invalidate cached plans
         try:
             return self._alter_inner(schema_text, drop_attr, drop_all)
         finally:
             # alters write outside the txn/applied barrier: advance the
-            # watermark past every read_ts allocated during the alter
+            # watermark past every read_ts allocated during the alter,
+            # so queries that raced the (non-transactional) schema
+            # writes never coalesce with, or hit the results of,
+            # post-alter traffic
             self._snapshot_ts = max(
                 self._snapshot_ts, self.zero.next_ts()
             )
@@ -401,6 +566,18 @@ class Server:
                     f"type {tu.name} {{\n  {fields}\n}}\n".encode("utf-8"),
                 )
 
+    def bump_snapshot(self) -> int:
+        """Advance the snapshot watermark past every timestamp leased
+        so far. Direct-KV writers that bypass the commit path (bulk
+        loaders, the namespace counter) MUST call this after their
+        writes land, or watermark reads would never see them; commits
+        and alters advance it themselves. Returns the new watermark.
+        max()-guarded like every other watermark writer: a commit
+        leased after our read_ts may publish a larger watermark before
+        this assignment runs."""
+        self._snapshot_ts = max(self._snapshot_ts, self.zero.read_ts())
+        return self._snapshot_ts
+
     def _reindex(self, su):
         """Full index rebuild for a predicate (ref posting/index.go:1115
         IndexRebuild): drop index range, re-tokenize all values."""
@@ -441,39 +618,48 @@ class Server:
         # txn creation (vector index) forces collected columns back to
         # the serial representation
         colwrite.commit_guard(txn, self)
+        # admission costs writes too: a commit charges the same
+        # in-flight token budget queries draw from (retryable 429 over
+        # budget; no-op with DGRAPH_TPU_ADMISSION off)
+        ticket = self.serving.admit_write(txn.pending_postings())
         t_commit0 = time.monotonic()
-        if not bool(config.get("GROUP_COMMIT")):
-            # escape hatch (DGRAPH_TPU_GROUP_COMMIT=0): the serial
-            # per-txn path, byte-for-byte
-            commit_ts = self._commit_serial(txn)
-        else:
-            gc = self._group_commit
-            if gc is None:
-                with self._lock:
-                    gc = self._group_commit
-                    if gc is None:
-                        gc = self._group_commit = GroupCommit(
-                            self._gc_propose, serial_fn=self._gc_serial
-                        )
-            with METRICS.timer("commit_latency_seconds"):
-                commit_ts = gc.commit(txn)
-            if not getattr(txn, "gc_bypassed", False):
-                # the bypass ran the serial path, whose inline
-                # post-commit work already happened
-                self._post_commit(txn, commit_ts)
-        # counted for both arms, only on success: postings WRITTEN (the
-        # columnar kernel reports its exact count)
-        METRICS.inc(
-            "mutation_edges_total",
-            sum(len(p) for p in txn.cache.deltas.values())
-            + getattr(txn, "col_nposts", 0),
-        )
-        observe.note_tenant(
-            "commit",
-            getattr(txn, "tenant_ns", keys.GALAXY_NS),
-            time.monotonic() - t_commit0,
-        )
-        return commit_ts
+        try:
+            if not bool(config.get("GROUP_COMMIT")):
+                # escape hatch (DGRAPH_TPU_GROUP_COMMIT=0): the serial
+                # per-txn path, byte-for-byte
+                commit_ts = self._commit_serial(txn)
+            else:
+                gc = self._group_commit
+                if gc is None:
+                    with self._lock:
+                        gc = self._group_commit
+                        if gc is None:
+                            gc = self._group_commit = GroupCommit(
+                                self._gc_propose, serial_fn=self._gc_serial
+                            )
+                with METRICS.timer("commit_latency_seconds"):
+                    commit_ts = gc.commit(txn)
+                if not getattr(txn, "gc_bypassed", False):
+                    # the bypass ran the serial path, whose inline
+                    # post-commit work already happened
+                    self._post_commit(txn, commit_ts)
+            # counted for both arms, only on success: postings WRITTEN
+            # (the columnar kernel reports its exact count)
+            METRICS.inc(
+                "mutation_edges_total",
+                sum(len(p) for p in txn.cache.deltas.values())
+                + getattr(txn, "col_nposts", 0),
+            )
+            # per-tenant SLO slice: mutate paths stamp the resolved
+            # namespace onto the txn
+            observe.note_tenant(
+                "commit",
+                getattr(txn, "tenant_ns", keys.GALAXY_NS),
+                time.monotonic() - t_commit0,
+            )
+            return commit_ts
+        finally:
+            self.serving.release_write(ticket)
 
     def _gc_propose(self, members):
         """Group-commit propose phase (batch leader's thread): ONE
@@ -544,6 +730,7 @@ class Server:
                         ok += 1
                 if ok:
                     METRICS.inc("num_commits", ok)
+                    self.serving.on_commit()  # ONE epoch bump per batch
                 commit_phase_ns(apply=time.perf_counter_ns() - tb)
 
         return barrier
@@ -552,7 +739,7 @@ class Server:
         """Per-txn post-commit work on the committer's own thread (stats
         feed, vector ingest): everything after the apply barrier that
         doesn't need batch ordering."""
-        feed_stats(self.stats, txn.cache.deltas)
+        self._feed_stats(txn.cache.deltas)
         colwrite.feed_col_stats(self.stats, txn)
         ingest_vectors(self.vector_indexes, txn.cache.deltas)
 
@@ -596,11 +783,17 @@ class Server:
         ck = getattr(txn, "col_keys", None)
         if ck:
             self.mem.invalidate(ck)
-        feed_stats(self.stats, txn.cache.deltas)
+        self.serving.on_commit()  # commit-epoch plan invalidation
+        self._feed_stats(txn.cache.deltas)
         colwrite.feed_col_stats(self.stats, txn)
         # vector index ingestion at commit (factory seam)
         ingest_vectors(self.vector_indexes, txn.cache.deltas)
         return commit_ts
+
+    def _feed_stats(self, deltas):
+        """Count index-key postings into the cm-sketch (ref posting/stats
+        collection feeding planForEqFilter)."""
+        feed_stats(self.stats, deltas)
 
     # -- mutations -------------------------------------------------------------
 
@@ -929,82 +1122,361 @@ class Server:
         flush()
         return {k[2:]: hex(v) for k, v in blank.items()}
 
+    # -- observability ----------------------------------------------------------
+
+    def health(self) -> dict:
+        """Single-node health/SLO rollup (/debug/healthz body): the
+        process healthz (admission rates, pipeline depth, SLO burn
+        windows) plus this engine's snapshot-watermark lag. No raft
+        groups here — the cluster engines report those."""
+        out = observe.healthz("alpha")
+        out["snapshot_watermark"] = int(self._snapshot_ts)
+        ma = getattr(self.zero, "max_assigned", None)
+        if isinstance(ma, (int, float)):
+            out["watermark_lag"] = max(0, int(ma) - self._snapshot_ts)
+        return out
+
     # -- queries ----------------------------------------------------------------
+
+    def _plan_cache_tiers(self) -> Dict[str, float]:
+        return cache_tier_snapshot(self.mem)
 
     def query(
         self,
         q: str,
         read_ts: Optional[int] = None,
+        access_jwt: Optional[str] = None,
         variables: Optional[Dict[str, str]] = None,
         timeout_ms: Optional[float] = None,
         want: str = "dict",
         debug: bool = False,
     ) -> dict:
-        """Run a read-only query at the snapshot watermark (or a given
-        read ts). timeout_ms bounds execution. The response carries
-        reference-shaped extensions.server_latency plus the per-query
-        profile; slow queries go to the slow-query log.
+        """Run a read-only query at a fresh (or given) read ts.
+        timeout_ms bounds execution (ref x/limits --query timeout).
+        The response carries reference-shaped extensions.server_latency
+        plus the per-query profile; slow queries are force-sampled and
+        appended to the slow-query JSONL log (DGRAPH_TPU_SLOW_QUERY_MS,
+        DGRAPH_TPU_SLOW_QUERY_LOG).
 
-        `want="raw"` returns `data` as a streamjson.RawJson byte shell.
-        `debug=True` attaches the EXPLAIN plan tree as `extensions.plan`;
-        `data` bytes are the same with it on or off."""
+        `want="raw"` skips the dict-API parse-back: `data` comes back
+        as a streamjson.RawJson byte shell for response assembly to
+        splice (the HTTP/gRPC serving surface).
+
+        `debug=True` (EXPLAIN/ANALYZE — HTTP ?debug=true, gRPC
+        Request.vars["debug"]) turns on the decision-capture hooks and
+        attaches the structured plan tree as `extensions.plan`. Capture
+        is observation-only: response `data` bytes are identical with
+        the flag on or off (golden-enforced, tests/test_explain.py)."""
         t_begin = time.monotonic()
-        blocks = dql.parse(q, variables)
-        t_parsed = time.monotonic()
-        deadline = (
-            time.monotonic() + timeout_ms / 1e3
-            if timeout_ms is not None
-            else None
-        )
-        # snapshot-watermark read (ref worker/oracle MaxAssigned): a read
-        # AT the watermark sees a complete store without leasing a fresh
-        # ts; 0 = nothing committed yet: lease a barrier-waited one
-        ts = (
-            read_ts
-            if read_ts is not None
-            else (self._snapshot_ts or self.zero.read_ts())
-        )
-        t_assigned = time.monotonic()
-        with TRACER.span("query", ns=keys.GALAXY_NS) as root, \
-                profile_scope(debug=debug) as prof, \
-                METRICS.timer("query_latency_seconds"):
-            cache = LocalCache(self.kv, ts, mem=self.mem)
-            out = self._query_parsed(
-                blocks, cache, keys.GALAXY_NS, deadline=deadline, want=want
+        # info is now always collected: the digest store records the
+        # plan-cache outcome per shape, not just EXPLAIN requests (the
+        # fill is three dict writes — observation-only either way)
+        parse_info: dict = {}
+        digested = False  # one digest record per query, on every path
+        try:
+            # plan cache: repeated query shapes skip parse entirely
+            blocks, shape, literals = self.serving.parse(
+                q, variables, info=parse_info
             )
-        METRICS.inc("num_queries")
-        t_done = time.monotonic()
-        ext = out.setdefault("extensions", {})
-        enc_ns = int(prof.encode.get("encode_ns", 0))
-        total_ns = int((t_done - t_begin) * 1e9)
-        ext["server_latency"] = {
-            "parsing_ns": int((t_parsed - t_begin) * 1e9),
-            "assign_timestamp_ns": int((t_assigned - t_parsed) * 1e9),
-            "processing_ns": max(
-                int((t_done - t_assigned) * 1e9) - enc_ns, 0
-            ),
-            "encoding_ns": enc_ns,
-            "total_ns": total_ns,
-        }
-        if total_ns > 0 and prof.encode:
-            prof.encode["share"] = round(enc_ns / total_ns, 4)
-        ext["profile"] = prof.to_dict()
-        if prof.plan is not None:
-            prof.plan.meta = {
-                "read_ts": int(ts),
-                "snapshot_watermark": int(self._snapshot_ts),
-                "wall_ns": total_ns,
+        except Exception:
+            # unparseable queries accrue to the per-ns `other` bucket —
+            # a flood of malformed text is an operator-visible shape
+            if DIGESTS.enabled():
+                DIGESTS.record(
+                    keys.GALAXY_NS, None,
+                    time.monotonic() - t_begin, error=True,
+                )
+            raise
+        t_parsed = time.monotonic()
+        # admission gate BEFORE the read-ts allocation: a shed must be
+        # FAST and side-effect-free — under overload the oracle's
+        # applied-barrier wait is exactly where queries queue, and a
+        # request that will be refused must neither join that queue
+        # nor lease a timestamp
+        ticket = self.serving.admit(shape, blocks)
+        slow = False
+        completed = False  # clean, untruncated execution
+        try:
+            ns = keys.GALAXY_NS
+            allowed = None
+            user = ""
+            if self.acl is not None:
+                try:
+                    if access_jwt is None:
+                        raise AclError("no access token (ACL enabled)")
+                    claims = self.acl.claims(access_jwt)
+                    user = claims.get("userid", "")
+                    ns = int(claims.get("namespace", 0))
+                    self.acl.authorize_preds(
+                        access_jwt, _query_preds(blocks), READ,
+                        claims=claims,
+                    )
+                    allowed = self.acl.readable_preds(claims)
+                except Exception:
+                    self._audit("query", user=user, body=q, status="DENIED")
+                    raise
+            self._audit("query", user=user, ns=ns, body=q)
+            deadline = (
+                time.monotonic() + timeout_ms / 1e3
+                if timeout_ms is not None
+                else None
+            )
+            degrade_deadline = None
+            if ticket.degrade:
+                # saturated: run under a bounded budget and return a
+                # partial/degraded response on exhaustion instead of
+                # queueing at full budget (the partial-result shape)
+                degrade_deadline = (
+                    time.monotonic() + self.serving.degrade_budget_s()
+                )
+                deadline = (
+                    degrade_deadline
+                    if deadline is None
+                    else min(deadline, degrade_deadline)
+                )
+            truncated = False
+            # snapshot-watermark read (ref worker/oracle MaxAssigned):
+            # `_snapshot_ts` is published only after a commit's deltas
+            # are written, and advances in commit-ts order — so a read
+            # AT the watermark sees a complete store without leasing a
+            # fresh ts and waiting out the apply barrier. Under mixed
+            # traffic that wait serialized every read behind the write
+            # pipeline's in-flight window; an in-flight (unacked)
+            # commit is legitimately excluded from the snapshot. 0 =
+            # nothing committed yet: fall back to a fresh barrier-
+            # waited lease.
+            # the watermark is sampled ONCE and reused for BOTH the
+            # read ts and the result-cache key: re-reading
+            # _snapshot_ts at key time would let a commit landing in
+            # between cache watermark-N bytes under the watermark-N+1
+            # key (a one-line TOCTOU that breaks the never-stale
+            # proof)
+            wm = self._snapshot_ts
+            ts = (
+                read_ts
+                if read_ts is not None
+                else (wm or self.zero.read_ts())
+            )
+            t_assigned = time.monotonic()
+            # snapshot-keyed result reuse (serving/resultcache.py):
+            # watermark reads with no ACL are a pure function of
+            # (shape, literals, vars, ns, watermark) — the
+            # micro-batcher's snapshot argument (serving/microbatch.py)
+            # — so the whole response's wire bytes can be
+            # served from the LRU. Caller-pinned read_ts never
+            # caches; EXPLAIN queries always execute but record the
+            # would-hit tier in the plan.
+            rc_key = None
+            rc_probe = False
+            raw_hit = None
+            if read_ts is None and self.acl is None:
+                rc_key, raw_hit, rc_probe = self.serving.result_probe(
+                    shape, literals, variables, ns, wm, debug,
+                )
+            if raw_hit is not None:
+                METRICS.inc("num_queries")
+                t_done = time.monotonic()
+                # hits are SERVED traffic: they must land in the
+                # latency histogram the SLO/health surface reads. The
+                # sample is the PROCESSING span (post-assign), the
+                # same span the miss path's METRICS.timer covers — a
+                # hit recording full wall time would make hit samples
+                # incomparable with miss samples in one histogram
+                METRICS.observe(
+                    "query_latency_seconds", t_done - t_assigned
+                )
+                # shape stays out of the cost EWMA (finally passes
+                # shape only when `completed`): a hit's latency
+                # describes the cache, not the shape's execution cost
+                # the admission gate estimates
+                if DIGESTS.enabled():
+                    DIGESTS.record(
+                        ns, shape, t_done - t_begin,
+                        nbytes=len(raw_hit),
+                        plan_hit=bool(parse_info.get("hit")),
+                        result_hit=True,
+                    )
+                    digested = True
+                observe.note_tenant("query", ns, t_done - t_assigned)
+                return hit_response(
+                    raw_hit, want,
+                    parsing_ns=int((t_parsed - t_begin) * 1e9),
+                    assign_ns=int((t_assigned - t_parsed) * 1e9),
+                    processing_ns=int((t_done - t_assigned) * 1e9),
+                    watermark=wm,
+                )
+            cache_base = self._plan_cache_tiers() if debug else None
+            with TRACER.span("query", ns=ns) as root, \
+                    profile_scope(debug=debug) as prof, \
+                    METRICS.timer("query_latency_seconds"):
+                try:
+                    cache = LocalCache(self.kv, ts, mem=self.mem)
+                    # caller-pinned read_ts never coalesces: the
+                    # snapshot-watermark argument only covers fresh
+                    # engine-allocated timestamps (which waited on the
+                    # applied barrier)
+                    out = self._query_parsed(
+                        blocks,
+                        cache,
+                        ns,
+                        allowed,
+                        deadline=deadline,
+                        batcher=(
+                            self.serving.batcher_for(cache)
+                            if read_ts is None
+                            else None
+                        ),
+                        want=want,
+                    )
+                except QueryBudgetError:
+                    # only the degraded-admission budget converts a
+                    # deadline trip into a partial result; semantic
+                    # errors (different type) and a tighter CLIENT
+                    # timeout (trips before the degrade budget) raise
+                    if (
+                        degrade_deadline is None
+                        or time.monotonic() < degrade_deadline
+                    ):
+                        raise
+                    out = {"data": {}}
+                    truncated = True
+            METRICS.inc("num_queries")
+            t_done = time.monotonic()
+            took_ms = (t_done - t_begin) * 1e3
+            ext = out.setdefault("extensions", {})
+            # encoding happens inside _query_parsed; it reports the
+            # wire-bytes production time through the profile and the
+            # processing component gives it up so the parts still sum
+            # to total_ns with no unattributed gap (the dict-API
+            # parse-back, when present, stays inside processing and is
+            # itemized as profile.encode.parse_ns)
+            enc_ns = int(prof.encode.get("encode_ns", 0))
+            total_ns = int((t_done - t_begin) * 1e9)
+            ext["server_latency"] = {
+                # new order: parse -> admission/ACL/ts -> execute; the
+                # admission + ACL + audit time rides in the assign
+                # component
+                "parsing_ns": int((t_parsed - t_begin) * 1e9),
+                "assign_timestamp_ns": int((t_assigned - t_parsed) * 1e9),
+                "processing_ns": max(
+                    int((t_done - t_assigned) * 1e9) - enc_ns, 0
+                ),
+                "encoding_ns": enc_ns,
+                "total_ns": total_ns,
             }
-            ext["plan"] = prof.plan.to_dict()
-        if root.trace_id:
-            ext["trace_id"] = f"{root.trace_id:032x}"
-        observe.note_tenant("query", keys.GALAXY_NS, t_done - t_assigned)
-        observe.maybe_log_slow(
-            "query", q, (t_done - t_begin) * 1e3, root,
-            extra={"ns": keys.GALAXY_NS},
-            threshold_ms=self.slow_query_ms,
+            if total_ns > 0 and prof.encode:
+                prof.encode["share"] = round(enc_ns / total_ns, 4)
+            ext["profile"] = prof.to_dict()
+            if prof.plan is not None:
+                prof.plan.plan_cache = parse_info or {}
+                prof.plan.admission = {
+                    "enabled": self.serving.admission.enabled(),
+                    "cost": round(ticket.cost, 3),
+                    "degrade": ticket.degrade,
+                }
+                if cache_base is not None:
+                    now_tiers = self._plan_cache_tiers()
+                    prof.plan.cache = {
+                        k: now_tiers[k] - cache_base.get(k, 0)
+                        for k in now_tiers
+                    }
+                prof.plan.result_cache = {
+                    "enabled": self.serving.results.capacity() > 0,
+                    "eligible": rc_key is not None,
+                    "would_hit": bool(rc_probe),
+                    "watermark": int(self._snapshot_ts),
+                }
+                prof.plan.meta = {
+                    "read_ts": int(ts),
+                    "snapshot_watermark": int(self._snapshot_ts),
+                    "wall_ns": total_ns,
+                }
+                ext["plan"] = prof.plan.to_dict()
+            if root.trace_id:
+                ext["trace_id"] = f"{root.trace_id:032x}"
+            if ticket.degrade:
+                ext["degraded_admission"] = True
+            if truncated:
+                METRICS.inc("degraded_queries_total")
+                ext["degraded"] = True
+                ext["partial"] = True
+            if DIGESTS.enabled():
+                data = out.get("data")
+                rows = (
+                    sum(
+                        len(v)
+                        for v in data.values()
+                        if isinstance(v, list)
+                    )
+                    if isinstance(data, dict)
+                    else 0
+                )
+                DIGESTS.record(
+                    ns, shape, t_done - t_begin,
+                    rows=rows,
+                    nbytes=int(prof.encode.get("bytes", 0)),
+                    error=truncated,
+                    plan_hit=bool(parse_info.get("hit")),
+                    setop_pairs=int(
+                        prof.events.get("setop_pairs_total", 0)
+                    ),
+                    setop_packed=int(
+                        prof.events.get("setop_packed_total", 0)
+                    ),
+                )
+                digested = True
+            observe.note_tenant("query", ns, t_done - t_assigned)
+            # structured slow-query log (ref x/log.go LogSlowOperation,
+            # edgraph/server.go:1448): force-sample + bounded JSONL —
+            # the digest shape key rides along so a slow entry joins
+            # its aggregate row in /debug/digests
+            slow = observe.maybe_log_slow(
+                "query", q, took_ms, root,
+                extra={"ns": ns, "shape": shape},
+                threshold_ms=self.slow_query_ms,
+            )
+            completed = not truncated
+            if rc_key is not None and completed:
+                raw = getattr(out.get("data"), "raw", None)
+                if raw is not None:
+                    self.serving.results.put(rc_key, raw)
+            return out
+        finally:
+            # a query that entered execution but never reached a digest
+            # record (ACL denial, semantic error, client deadline)
+            # still counts against its shape — errors are a first-class
+            # digest column
+            if not digested and DIGESTS.enabled():
+                DIGESTS.record(
+                    ns, shape, time.monotonic() - t_begin, error=True,
+                )
+            # only clean completions feed the shape cost EWMA: a
+            # truncated/denied/failed run's latency describes the
+            # failure, not the shape
+            self.serving.finish(
+                ticket,
+                shape if completed else None,
+                (time.monotonic() - t_begin) * 1e3,
+                slow=slow,
+            )
+
+    def query_rdf(
+        self,
+        q: str,
+        read_ts: Optional[int] = None,
+        variables: Optional[Dict[str, str]] = None,
+    ) -> str:
+        """Query with RDF (N-Quads) response encoding (ref
+        query/outputrdf.go ToRDF; resp_format=RDF on the wire)."""
+        ts = read_ts if read_ts is not None else self.zero.read_ts()
+        blocks = dql.parse(q, variables)
+        ex = Executor(
+            LocalCache(self.kv, ts, mem=self.mem),
+            self.schema,
+            vector_indexes=self.vector_indexes,
         )
-        return out
+        nodes = ex.process(blocks)
+        return encode_rdf(nodes)
 
     def _schema_query(self, gq) -> dict:
         """schema {} / schema(pred: ...) / schema(type: ...) blocks
@@ -1059,7 +1531,9 @@ class Server:
         blocks,
         cache: LocalCache,
         ns: int,
+        allowed_preds=None,
         deadline=None,
+        batcher=None,
         want: str = "dict",
     ) -> dict:
         if len(blocks) == 1 and blocks[0].attr == "__schema__":
@@ -1069,8 +1543,10 @@ class Server:
             self.schema,
             ns=ns,
             vector_indexes=self.vector_indexes,
+            allowed_preds=allowed_preds,
             stats=self.stats,
             deadline=deadline,
+            batcher=batcher,
         )
         nodes = ex.process(blocks)
         data, enc_stats = encode_response_data(
@@ -1123,6 +1599,84 @@ def _schema_line(su) -> str:
         directives.append("@unique")
     d = (" " + " ".join(directives)) if directives else ""
     return f"{su.predicate}: {t}{d} ."
+
+
+def _query_preds(blocks) -> list:
+    """All predicates a query touches (for ACL checks,
+    ref edgraph/server.go authorizeRequest)."""
+    preds = set()
+
+    def from_func(fn):
+        if fn is None or not fn.attr:
+            return
+        if fn.name == "type":
+            preds.add("dgraph.type")  # attr holds the type NAME, not a pred
+        else:
+            preds.add(fn.attr.lstrip("~"))
+
+    def from_filter(ft):
+        if ft is None:
+            return
+        from_func(ft.func)
+        for c in ft.children:
+            from_filter(c)
+
+    def walk(g):
+        from_func(g.func)
+        from_filter(g.filter)
+        # classify by node kind (flags), not by attr-name heuristics — a
+        # data predicate literally named "q"/"var" must still be checked
+        is_virtual = (
+            g.is_uid
+            or g.val_var
+            or g.aggregator
+            or g.math_expr is not None
+            or g.expand  # expanded preds are ACL-filtered at execution
+            or (g.is_count and g.attr == "uid")
+        )
+        if g.attr and not is_virtual:
+            preds.add(g.attr.lstrip("~"))
+        for ga in g.groupby_attrs:
+            preds.add(ga.lstrip("~"))
+        for o in g.order:
+            if o.attr:
+                preds.add(o.attr)
+        for c in g.children:
+            walk(c)
+
+    for b in blocks:
+        for c in b.children:
+            walk(c)
+        from_func(b.func)
+        from_filter(b.filter)
+        for ga in b.groupby_attrs:
+            preds.add(ga.lstrip("~"))
+        for o in b.order:
+            if o.attr:
+                preds.add(o.attr)
+    return sorted(preds)
+
+
+def _json_preds(obj) -> set:
+    """Predicates referenced by a JSON mutation object tree."""
+    preds = set()
+
+    def walk(o):
+        if isinstance(o, list):
+            for it in o:
+                walk(it)
+            return
+        if not isinstance(o, dict):
+            return
+        for k, v in o.items():
+            if k == "uid":
+                continue
+            preds.add(k.split("@", 1)[0])
+            if isinstance(v, (dict, list)):
+                walk(v)
+
+    walk(obj)
+    return preds
 
 
 def _eval_cond(cond: str, uid_vars) -> bool:

@@ -181,14 +181,17 @@ def _jit_brute_batch(metric: str, npool: int):
     """The brute scorer for Q (m, d): dot = Q @ V^T (torch.matmul), then
     KV1 (ops/vector_topk.py) fuses the distance epilogue, the invalid-row
     mask and the top-npool per row. Returns ((m, npool) distances
-    ascending, (m, npool) int32 row indices), in lax.top_k's order."""
+    ascending, (m, npool) int32 row indices), in lax.top_k's order. The
+    GEMM runs on at least vector_topk.MIN_ROWS rows, so a row scores the
+    same alone as in a batch of up to that many."""
     from dgraph_tpu_torch.ops import vector_topk
 
     def run(V, sqnorm, valid, Q):
+        m, Qp = len(Q), vector_topk.pad_rows(Q)
         return vector_topk.topk(
-            vector_topk.f32_matmul(Q, V.T), npool, metric, sqnorm=sqnorm,
-            valid=valid,
-            qstat=vector_topk.query_stat(Q, metric),
+            vector_topk.f32_matmul(Qp, V.T)[:m], npool, metric,
+            sqnorm=sqnorm, valid=valid,
+            qstat=vector_topk.query_stat(Qp, metric)[:m],
         )
 
     return run
@@ -225,22 +228,26 @@ def _ivf_probe(metric: str, m_slabs: int, npool: int):
     (ops/vector_topk.py) fuses the centroid epilogue, the slab_cell
     gather and the top-M, KV2 (ops/ivf_scan.py) reads the probed slabs in
     place (no (M, S, d) gather) into distances, and KV1 again takes the
-    top-npool. Returns ((m, npool) distances, (m, npool) row ids)."""
+    top-npool. Returns ((m, npool) distances, (m, npool) row ids). The
+    centroid GEMM and the query statistics run on at least
+    vector_topk.MIN_ROWS rows, so a row scores the same alone as in a
+    batch of up to that many."""
     import torch
 
     from dgraph_tpu_torch.ops import ivf_scan, vector_topk
 
     def run(cents, csq, slab_cell, flat_vecs, flat_sq, flat_rows, Q):
+        m, Qp = len(Q), vector_topk.pad_rows(Q)
         # nearest cells by centroid distance (always euclidean on the
         # centroid geometry — probe selection only, not result ranking)
         _, sidx = vector_topk.topk(
-            vector_topk.f32_matmul(Q, cents.T), m_slabs, "euclidean",
-            sqnorm=csq, qstat=vector_topk.query_stat(Q, "euclidean"),
+            vector_topk.f32_matmul(Qp, cents.T)[:m], m_slabs, "euclidean",
+            sqnorm=csq, qstat=vector_topk.query_stat(Qp, "euclidean")[:m],
             col_index=slab_cell,
         )
         dd = ivf_scan.slab_distances(
             flat_vecs, flat_sq, flat_rows, sidx, Q,
-            vector_topk.query_stat(Q, metric), metric,
+            vector_topk.query_stat(Qp, metric)[:m], metric,
         )
         d, idx = vector_topk.topk(dd, npool, "distance")
         rows = flat_rows[sidx.long()].reshape(len(Q), -1)

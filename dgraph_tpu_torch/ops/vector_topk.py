@@ -34,6 +34,10 @@ METRIC_ID = {"euclidean": 0, "cosine": 1, "dotproduct": 2, "distance": 3}
 # columns per row the kernel takes (a column index fits 30 bits of its
 # keys); the .cu refuses more as well
 MAX_N = 1 << 30
+# the fewest query rows the GEMM in front of the kernel runs at
+# (`pad_rows`): every batch the micro-batcher coalesces (at most 4
+# queries) and its members' solo searches score each row alike
+MIN_ROWS = 8
 
 # kernel launches, for showing that a path went through the kernel; the
 # plain version's calls on CPU tensors are counted apart
@@ -144,6 +148,19 @@ def f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             return torch.matmul(a, b)
         finally:
             flags.allow_tf32 = before
+
+
+def pad_rows(Q: torch.Tensor) -> torch.Tensor:
+    """Q (m, d) with zero rows appended up to MIN_ROWS. The GEMM and
+    `query_stat` in front of this kernel run on the padded rows and keep
+    the first m: BLAS and cuBLAS pick their kernel, and with it the order
+    of each dot's sums, by the row count (a GEMV for one row), so a query
+    searched alone would otherwise score other dots than the same query
+    coalesced with up to MIN_ROWS - 1 others."""
+    m = Q.shape[0]
+    if m >= MIN_ROWS:
+        return Q
+    return torch.cat([Q, Q.new_zeros((MIN_ROWS - m, Q.shape[1]))])
 
 
 def query_stat(Q: torch.Tensor, metric: str) -> torch.Tensor:

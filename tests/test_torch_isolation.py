@@ -8,7 +8,10 @@
   CPU; then it alters an `hnsw` vector predicate, commits three vectors
   and answers a `similar_to`; then, on a store in a temporary
   `data_dir`, it commits a JSON mutation and a conditional upsert, and
-  a second Server opened on that directory answers as the first did.
+  a second Server opened on that directory answers as the first did;
+  then the first query, asked again, hits the plan cache,
+  `query_rdf` answers in N-Quads, and with ACL on groot logs in and an
+  authorised query answers as it did with ACL off.
 - Every module the port copied from the reference equals it but for the
   rebinding of `dgraph_tpu` to `dgraph_tpu_torch` and for citations of
   the upstream Go sources, written `dgraph/<path>` in the port; the
@@ -42,7 +45,6 @@ PORTED = {
     "ops/vector_topk.py",
     "query/dispatch.py",
     # package inits that do not re-export modules the slice leaves out
-    "serving/__init__.py",
     "worker/__init__.py",
 }
 # copies with a repair: (module, top-level function or Class.method)
@@ -155,6 +157,17 @@ r = Server(device="cpu", data_dir=d)
 print(json.dumps([before, r.query(q)["data"]]))
 r.kv.close()
 shutil.rmtree(d)
+q0 = '{ q(func: eq(name, "a")) { friend @filter(eq(name, "b")) { uid } } }'
+first = s.query(q0)["data"]
+hits = s.serving.plan_cache.stats()["hits"]
+again = s.query(q0)
+hits = s.serving.plan_cache.stats()["hits"] - hits
+rdf = s.query_rdf('{ q(func: eq(name, "a")) { name friend { uid } } }')
+s.enable_acl(secret=b"k" * 32)
+tok = s.login("groot", "password")["accessJwt"]
+authed = s.query(q0, access_jwt=tok)
+print(json.dumps([hits, again["data"],
+                  sorted(rdf.strip().splitlines()), first, authed["data"]]))
 print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "dgraph_tpu")))
 """
 
@@ -167,7 +180,7 @@ def test_runs_with_jax_and_reference_blocked():
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
     )
     assert got.returncode == 0, got.stderr[-3000:]
-    data, similar, restart, mods = got.stdout.strip().splitlines()[-4:]
+    data, similar, restart, front, mods = got.stdout.strip().splitlines()[-5:]
     assert json.loads(data) == {
         "q": [{"friend": [{"uid": "0x3"}, {"uid": "0x100000004"}]}]
     }
@@ -177,6 +190,14 @@ def test_runs_with_jax_and_reference_blocked():
         {"uid": "0x2", "name": "a", "email": "a@x"},
         {"uid": "0x3", "name": "b", "email": "b@x"},
     ]}
+    hits, again, rdf, first, authed = json.loads(front)
+    assert hits == 1
+    assert rdf == [
+        '<0x2> <friend> <0x100000004> .',
+        '<0x2> <friend> <0x3> .',
+        '<0x2> <name> "a" .',
+    ]
+    assert authed == again == first == json.loads(data)
     assert mods == "[]"
 
 

@@ -503,3 +503,80 @@ def test_serve_vectors_phase_on_cpu(float_paths):
     assert out["filtered_ks"] == [40, 160, 640, 1000] and out["topk_per_read"]["i"] == 4
     topk_sites, slab_sites = out["captured"]
     assert any(gathered for (_, _, _, gathered) in topk_sites) and slab_sites
+
+
+# ---------------------------------------------------------------------------
+# Batch-width independence: a solo search equals its row of a coalesced one
+# ---------------------------------------------------------------------------
+
+BW_N, BW_D = 20_000, 768
+TIERS = {"brute": dict(ivf_threshold=1 << 62), "ivf": dict(ivf_threshold=2000, nprobe=2)}
+
+
+@pytest.fixture(scope="module")
+def width_indexes():
+    """Both packages' indexes over one Gaussian (20,000, 768) corpus, per
+    tier, on the float paths. nprobe 2 keeps the IVF tier chosen for every
+    batch width up to 5 (`_ivf_pick`)."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("DGRAPH_TPU_VEC_QUANT", "0")
+    rng = np.random.default_rng(21)
+    V = rng.standard_normal((BW_N, BW_D)).astype(np.float32)
+    Q = rng.standard_normal((5, BW_D)).astype(np.float32)
+    uids = np.arange(1, BW_N + 1, dtype=np.uint64)
+    out = {}
+    for tier, kw in TIERS.items():
+        ref, port = _pair(**kw)
+        ref.bulk_load(uids, V)
+        port.bulk_load(uids, V.copy())
+        out[tier] = (ref, port)
+    yield V, Q, out
+    mp.undo()
+
+
+@pytest.mark.parametrize("width", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("tier", sorted(TIERS))
+def test_solo_search_is_its_row_of_every_batch_width(width_indexes, float_paths, tier, width):
+    """`search_one(Q[i])` equals row i of `search_batch(Q[:width])`
+    exactly (the micro-batcher's promise), on the tier the index picks
+    for both; and the batch equals the reference's wherever neighbours
+    stand further apart than f32 rounding."""
+    V, Q, idx = width_indexes
+    ref, port = idx[tier]
+    ivf = vector.COUNTERS.path_jit_ivf
+    batch = port.search_batch(Q[:width], 10)
+    assert (vector.COUNTERS.path_jit_ivf - ivf == width) == (tier == "ivf")
+    for i in range(width):
+        np.testing.assert_array_equal(port.search_one(Q[i], 10), batch[i])
+    want = ref.search_batch(Q[:width], 10)
+    for i in range(width):
+        if not np.array_equal(batch[i], want[i]):
+            d = [np.sort(((V[np.asarray(r, np.int64) - 1] - Q[i]).astype(np.float64) ** 2).sum(1))
+                 for r in (batch[i], want[i])]
+            scale = float(d[1].max())
+            assert np.abs(d[0] - d[1]).max() <= RTOL * scale
+
+
+@pytest.mark.parametrize("width", [2, 3, 4, 5])
+def test_row_scores_do_not_depend_on_batch_width(width_indexes, float_paths, width):
+    """The device functions behind both tiers give each row the same
+    distances bit for bit alone and at every width up to
+    vector_topk.MIN_ROWS: the GEMM and |q|^2 run at that width at least
+    (BLAS picks its kernel, and so each dot's order of sums, by the row
+    count)."""
+    _, Q, idx = width_indexes
+    port = idx["ivf"][1]
+    port._sync_device()
+    dev, ivf = port._device, port._ivf
+    Qt = _t(Q[:width])
+    brute = vector._jit_brute_batch("euclidean", 10)
+    m, npool = vector._probe_plan(ivf, 40)
+    probe = vector._ivf_probe("euclidean", m, npool)
+    args = [ivf["dev"][k] for k in ("cents", "csq", "slab_cell", "flat_vecs", "flat_sq", "flat_rows")]
+    b_d, b_i = brute(dev["vecs"], dev["sqnorm"], dev["valid"], Qt)
+    p_d, p_i = probe(*args, Qt)
+    for i in range(width):
+        s_d, s_i = brute(dev["vecs"], dev["sqnorm"], dev["valid"], Qt[i : i + 1])
+        assert torch.equal(s_d[0], b_d[i]) and torch.equal(s_i[0], b_i[i])
+        s_d, s_i = probe(*args, Qt[i : i + 1])
+        assert torch.equal(s_d[0], p_d[i]) and torch.equal(s_i[0], p_i[i])

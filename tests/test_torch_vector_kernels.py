@@ -254,3 +254,44 @@ def test_slab_scan_within_tolerance(card, metric, n_slabs, M, nq, d):
     assert torch.isinf(got[pad]).all() and torch.isinf(want[pad]).all()
     tol = ivf_scan.tolerance(fsq[sidx.long()].reshape(nq, -1), Q, metric)
     assert ((got - want).abs()[~pad] <= tol[~pad]).all()
+
+
+@pytest.mark.parametrize("tier", ["brute", "ivf"])
+def test_solo_search_is_its_row_of_every_batch_width(card, monkeypatch, tier):
+    """On the card, as tests/test_torch_vector.py checks on the CPU:
+    `search_one(Q[i])` equals row i of `search_batch(Q[:w])` for w = 1..5
+    on both tiers, and the device functions give each row the same
+    distances bit for bit at every width (cuBLAS picks a GEMV for one row
+    and other kernels by the row count; the GEMM runs at
+    vector_topk.MIN_ROWS rows at least)."""
+    from dgraph_tpu_torch.models import vector
+
+    monkeypatch.setenv("DGRAPH_TPU_VEC_QUANT", "0")
+    rng = np.random.default_rng(21)
+    V = rng.standard_normal((100_000, 768)).astype(np.float32)
+    Q = rng.standard_normal((5, 768)).astype(np.float32)
+    kw = {"brute": dict(ivf_threshold=1 << 62), "ivf": dict(ivf_threshold=2000, nprobe=2)}[tier]
+    idx = vector.VectorIndex("emb", device=card, **kw)
+    idx.bulk_load(np.arange(1, len(V) + 1, dtype=np.uint64), V)
+    for width in range(1, 6):
+        ivf = vector.COUNTERS.path_jit_ivf
+        batch = idx.search_batch(Q[:width], 10)
+        assert (vector.COUNTERS.path_jit_ivf - ivf == width) == (tier == "ivf")
+        for i in range(width):
+            np.testing.assert_array_equal(idx.search_one(Q[i], 10), batch[i])
+    Qt = torch.from_numpy(Q).to(card)
+    if tier == "brute":
+        dev = idx._device
+        run = vector._jit_brute_batch("euclidean", 10)
+        args = (dev["vecs"], dev["sqnorm"], dev["valid"])
+    else:
+        ivf = idx._ivf
+        m, npool = vector._probe_plan(ivf, 40)
+        run = vector._ivf_probe("euclidean", m, npool)
+        args = [ivf["dev"][k] for k in ("cents", "csq", "slab_cell", "flat_vecs", "flat_sq",
+                                         "flat_rows")]
+    for width in range(2, 6):
+        b_d, b_i = run(*args, Qt[:width])
+        for i in range(width):
+            s_d, s_i = run(*args, Qt[i : i + 1])
+            assert torch.equal(s_d[0], b_d[i]) and torch.equal(s_i[0], b_i[i])
