@@ -48,13 +48,12 @@ Phases, each of which fails the run when it fails:
   8. the write path, once on the WAL-backed store and once with
      DGRAPH_TPU_STORAGE=lsm: a `Server(device="cuda", data_dir=<tmp>)`
      with group commit on and the device path forced loads phase 4's
-     graph and phase 7's 100,000 `emb_small` rows (the lsm arm the first
-     25,000) through `mutate_json` (the answers must equal numpy), then
-     runs (u1) 8 threads x 500
+     graph and phase 7's 100,000 `emb_small` rows through `mutate_json`
+     (the answers must equal numpy), then runs (u1) 8 threads x 250
      email upserts (Dgraph's Upsert Block example; each email must end
      with one uid), (u2) an upsert whose query block is query (b)'s
      filtered level 3 (K1 must launch; `has(hot_seen)` must equal numpy)
-     and (u3) the bank in JSON, 8 threads x 250 transfers with a reader
+     and (u3) the bank in JSON, 8 threads x 125 transfers with a reader
      checking the total at every snapshot. It closes the store, opens it
      again in a new Server, times the recovery, and every answer of
      before, 16 `similar_to` reads among them, must come back byte for
@@ -62,8 +61,8 @@ Phases, each of which fails the run when it fails:
      recovered uid;
   9. the serving front, on phase 4's and phase 7's servers (kept alive
      for it): (9b) the plan cache over (b)'s filtered level rooted at
-     each level-1 uid, with PLAN_CACHE_SIZE 512 and 0 (answers equal and
-     equal to numpy); (9d) `query_rdf` of (a) and (b), device path ==
+     each of 50 level-1 uids, with PLAN_CACHE_SIZE 512 and 0 (answers
+     equal and equal to numpy); (9d) `query_rdf` of (a) and (b), device path ==
      host path byte for byte, one triple per edge of the JSON answer;
      (9c) the result cache over (a)-(d) (hits equal misses), then one
      committed edge that the next (b), a miss, must show; (9a) 16 client
@@ -76,13 +75,42 @@ Phases, each of which fails the run when it fails:
      a reader of `name` alone is refused `emb` and answered on `name` as
      with ACL off. K1 is held against its plain version at every shape
      these reads gave it, KV1 and KV2 at every shape (the coalesced
-     widths 2-4 among them).
+     widths 2-4 among them);
+ 10. data in and out (`serve_ops`), on Servers of its own in a temporary
+     directory, group commit on and the device path forced: (10a) the
+     parallel bulk loader loads phase 4's graph (the native reduce) and
+     phase 7's 100,000 `emb_small` rows (the Python reduce, its map
+     workers forked while the card is live); (a)-(d) must equal numpy,
+     16 `similar_to` reads the exact top-k, and all of it again after
+     the store is closed and reopened; (10b) subscriptions to (b) and to
+     one `similar_to` over 20 tag flips (one callback each, equal to
+     numpy), 5 unrelated commits (none) and 5 vector commits (each
+     callback shows the vectors of the commits before it: subscriptions
+     run before a commit's vectors reach the index, as in the
+     reference), with commit latency with and without them; (10c) CDC to
+     an ndjson file over (10b) and the JSON bank (8 threads x 100
+     transfers): commit-ts order, unique ids, one event per committed
+     posting, the checkpoint at the last commit; then a final batch that
+     an injected emitter crash keeps from the sink, a restart and a
+     replay whose union with the first sink is the committed set, and
+     which, applied to a fresh Server, answers (b) and the balances as
+     the source; (10d) a full and an incremental backup through the task
+     queue, restored into a fresh Server (answers equal the source's),
+     `until` the full backup into another (equal to the source after
+     (10a)) and into the warm source (answers unchanged), an RDF export
+     bulk-loaded into a fresh Server ((b) equal), and `rollup_all` twice,
+     the second with MAX_PART_UIDS 50,000, which splits the `cold` index
+     list ((a)-(d) equal to numpy over its parts). K1 and KV1 are held
+     against their plain versions at every shape and site phase 10 gave
+     them.
 
 `--profile` adds, for the named queries (a-d of phase 4, e-i of phase
 7), where one warm run's time goes: host functions by own time
 (cProfile) and the card's busy share (torch.profiler). `--crossover`
 runs phases 1-2 and then, in place of the others, measures where KV1's
-radix regime starts to beat its one-pass regime (`topk_crossover`).
+radix regime starts to beat its one-pass regime (`topk_crossover`);
+`--ops-only` runs phases 1-2 and then phase 10 alone, on rows made
+anew.
 
 The second-to-last lines are the kernel table (JSON) and the card; the
 last line is `{"ok": true, "device": {...}}`. Without a CUDA card the
@@ -179,16 +207,17 @@ def load_graph(server, g, chunk=50_000) -> int:
     return n
 
 
-def expected(g, name):
-    """What query `name` must answer, from the edge arrays alone."""
-    f = g["f"]
-    rows = [np.unique(g["l3"][i * f : (i + 1) * f]) for i in range(len(g["l2"]))]
+def expected(g, name, hot=None):
+    """What query `name` must answer, from the edge arrays alone (with the
+    uids in `hot` tagged hot, if given, instead of the graph's own)."""
+    rows = np.sort(g["l3"].reshape(len(g["l2"]), g["f"]), axis=1)
+    first = np.ones(rows.shape, bool)  # each uid of a row once
+    first[:, 1:] = rows[:, 1:] != rows[:, :-1]
     if name == "a":
-        return [len(r) for r in rows]
-    return {
-        int(u): np.intersect1d(r, g["hot"]).tolist()
-        for u, r in zip(g["l2"], rows)
-    }
+        return first.sum(axis=1).tolist()
+    hot = g["hot"] if hot is None else np.fromiter(hot, np.uint64, len(hot))
+    keep = first & np.isin(rows, hot)
+    return {u: r[m].tolist() for u, r, m in zip(g["l2"].tolist(), rows, keep)}
 
 
 def json_edges(data) -> int:
@@ -1832,9 +1861,11 @@ def _p50_p99(ms):
     return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
 
 
-def front_graph(server, g, log=print):
+def front_graph(server, g, n_roots=50, log=print):
     """(9b)-(9d) on phase 4's server, on the forced device path: the plan
-    cache over (b)'s filtered level rooted at each level-1 uid, twice,
+    cache over (b)'s filtered level rooted at each of the first `n_roots`
+    level-1 uids (the cache keeps 16 bindings a shape, so a cycle over
+    more misses), twice,
     with PLAN_CACHE_SIZE 512 and 0; `query_rdf` of (a) and (b), device
     path == host path, one triple per edge of the JSON answer; the result
     cache over (a)-(d) (hits == misses), then one committed edge that (b)
@@ -1849,7 +1880,7 @@ def front_graph(server, g, log=print):
         return member_sweep.LAUNCHES if on_card else member_sweep.PLAIN_CALLS
 
     f, want_b = g["f"], expected(g, "b")
-    roots = [hex(int(u)) for u in g["l1"]]
+    roots = [hex(int(u)) for u in g["l1"][:n_roots]]
     out = {"plan": {}, "rdf": {}}
     with forced_device(), _Capture(member_sweep) as cap:
         member_sweep.LAUNCHES = member_sweep.PLAIN_CALLS = 0
@@ -2129,6 +2160,585 @@ def sweep_shapes_equal(by_shape):
 
 
 # ---------------------------------------------------------------------------
+# Data in and out (phase 10)
+# ---------------------------------------------------------------------------
+
+
+def _vector_lines(args):
+    V, base, pred = args
+    return "\n".join(
+        f'<{hex(base + i)}> <{pred}> "[{",".join(map("{:.9g}".format, row))}]" .'
+        for i, row in enumerate(V.tolist())
+    )
+
+
+def vector_nquads(V, base, pred="emb_small", workers=1, step=4096):
+    """The rows of V as N-Quads on uids base, base + 1, ...: each float32
+    printed with 9 significant digits, which parse back to the same
+    float32 (half the text of a double's shortest form). The literals
+    are untyped: the predicate's schema types them, and the bulk
+    loader's map takes such lines by its fast
+    line pattern (a `^^<float32vector>` suffix sends each through the
+    RDF statement splitter, a character at a time). With `workers` above
+    1, blocks of `step` rows are printed in forked processes."""
+    parts = [(V[s : s + step], base + s, pred) for s in range(0, len(V), step)]
+    if workers <= 1 or len(parts) <= 1:
+        return "\n".join(map(_vector_lines, parts))
+    import multiprocessing as mp
+
+    with mp.get_context("fork").Pool(workers) as pool:
+        return "\n".join(pool.map(_vector_lines, parts))
+
+
+def _event_object(e):
+    """A CDC event's object as an N-Quad term."""
+    if "value_uid" in e:
+        return f"<{hex(e['value_uid'])}>"
+    if e["operation"] != "set":
+        return "*"
+    v = e["value"]
+    if isinstance(v, bool):
+        return f'"{str(v).lower()}"^^<xs:boolean>'
+    if isinstance(v, int):
+        return f'"{v}"^^<xs:int>'
+    if isinstance(v, float):
+        return f'"{v!r}"^^<xs:float>'
+    if isinstance(v, list):
+        return f'"[{", ".join(map(repr, v))}]"^^<xs:float32vector>'
+    return json.dumps(str(v))
+
+
+def apply_events(server, events):
+    """Replay a CDC stream through the mutation path: one transaction per
+    source commit, in commit order, its deletes before its sets."""
+    by_ts = {}
+    for ev in sorted(events, key=lambda ev: (ev["meta"]["commit_ts"], ev["meta"]["seq"])):
+        by_ts.setdefault(ev["meta"]["commit_ts"], []).append(ev["event"])
+    for evs in by_ts.values():
+        lines = {"set": [], "del": []}
+        for e in evs:
+            lines[e["operation"]].append(f"<{hex(e['uid'])}> <{e['attr']}> {_event_object(e)} .")
+        t = server.new_txn()
+        if lines["del"]:
+            t.mutate_rdf(del_rdf="\n".join(lines["del"]))
+        if lines["set"]:
+            t.mutate_rdf(set_rdf="\n".join(lines["set"]))
+        t.commit()
+    return len(by_ts)
+
+
+def committed_events(kv, since):
+    """Every data posting the store holds above `since`, as the CDC event
+    it must have had: {(commit_ts, seq): event}."""
+    from dgraph_tpu_torch.admin.cdc import events_for
+    from dgraph_tpu_torch.posting.pl import KIND_DELTA, decode_record
+    from dgraph_tpu_torch.x import keys
+
+    per_ts = {}
+    for key, vers in kv.iterate_versions(b"", 1 << 62):
+        try:
+            if not keys.parse_key(bytes(key)).is_data:
+                continue
+        except Exception:
+            continue  # meta keys: the CDC checkpoint, counters
+        for ts, rec in vers:
+            if ts <= since:
+                break
+            if rec[0] != KIND_DELTA:
+                raise AssertionError(f"a rolled-up version above {since}: {key!r}")
+            per_ts.setdefault(int(ts), {}).setdefault(bytes(key), []).extend(
+                decode_record(bytes(rec))[2])
+    return {(ev["meta"]["commit_ts"], ev["meta"]["seq"]): ev["event"]
+            for ts in per_ts for ev in events_for(ts, per_ts[ts])}
+
+
+def read_sink(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _by_id(events):
+    return {(ev["meta"]["commit_ts"], ev["meta"]["seq"]): ev["event"] for ev in events}
+
+
+def _answers(server, vec_q):
+    out = {name: _run_query(server, q) for name, q in QUERIES.items()}
+    out.update({f"v{i}": _run_query(server, q) for i, q in enumerate(vec_q)})
+    return out
+
+
+def _same_answers(what, got, want, V, Q, vec_base, ex_d, new=()):
+    """Byte-equal answers; a similar_to read may differ only at an f32
+    near-tie of the exact top-k (rows of V; `new` uids equal as they are).
+    Returns the reads that differed at a near-tie."""
+    ties = []
+    for name, w in want.items():
+        if got[name] == w:
+            continue
+        if not name.startswith("v"):
+            raise AssertionError(f"{what}: {name} answers differently")
+        i = int(name[1:])
+        a, b = ([int(o["uid"], 16) for o in json.loads(x)["q"]] for x in (got[name], w))
+        if [u for u in a if u in new] != [u for u in b if u in new]:
+            raise AssertionError(f"{what}: similar_to read {i} moved a committed vector")
+        rows = np.sort([u - vec_base for u in a if u not in new])
+        if not near_equal(V, Q[i : i + 1], [rows], ex_d[i : i + 1, : len(rows)]):
+            raise AssertionError(f"{what}: similar_to read {i} moved beyond a near-tie")
+        ties.append(i)
+    return ties
+
+
+def _wait_task(server, tid, timeout=1800.0):
+    from dgraph_tpu_torch.admin import tasks
+
+    st = tasks._queue_of(server).wait(tid, timeout=timeout)
+    if st.get("status") != "Success":
+        raise AssertionError(f"task {tid}: {st}")
+    return st["result"]
+
+
+def serve_ops(device, workdir, V, Q, fanout=100, pool=200_000, workers=None, n_reads=16,
+              k=10, n_flips=20, n_unrelated=5, n_vec_commits=5, n_final=10, n_accounts=1000,
+              bank_threads=8, transfers_per_thread=100, split_at=50_000, log=print):
+    """Phase 10 in `workdir`: (10a) the parallel bulk loader loads the
+    fan-out graph (the native reduce) and the vectors V (the Python
+    reduce, its map workers forked while the card is live) into a
+    `Server(device, data_dir)` with group commit on and the device path
+    forced; the store is closed and reopened. (10b) subscriptions to (b)
+    and to one similar_to, over tag flips, unrelated commits and vector
+    commits. (10c) CDC to an ndjson file over (10b) and the JSON bank,
+    a final batch lost by an injected emitter crash, a restart and a
+    replay; the union must equal the committed set, and applied to a
+    fresh Server it must answer as the source. (10d) a full and an
+    incremental backup through the task queue, restores into fresh
+    Servers (whole chain, and `until` the full backup) and into the
+    warm source, an RDF export bulk-loaded into a fresh Server, and
+    rollups, the second splitting the `cold` index list. Every answer is
+    held to numpy or to the source. The kernel counts are zeroed at the
+    start and read at the end; K1's inputs per shape and KV1's per site
+    are kept for the comparison with the plain versions. Returns the
+    measurements; raises when a check fails."""
+    import gc
+    import os
+
+    import torch
+
+    from dgraph_tpu_torch.admin import backup as bk
+    from dgraph_tpu_torch.admin import tasks
+    from dgraph_tpu_torch.admin.cdc import cdc_for_uri
+    from dgraph_tpu_torch.api import server as server_mod
+    from dgraph_tpu_torch.api.subscriptions import Subscriptions
+    from dgraph_tpu_torch.conn import faults
+    from dgraph_tpu_torch.loaders.bulk2 import ParallelBulkLoader
+    from dgraph_tpu_torch.ops import member_sweep, vector_topk
+    from dgraph_tpu_torch.posting import pl as plmod
+    from dgraph_tpu_torch.posting.pl import decode_record
+    from dgraph_tpu_torch.posting.rollup import rollup_all
+    from dgraph_tpu_torch.tok.tok import build_tokens
+    from dgraph_tpu_torch.types.types import TypeID, Val
+    from dgraph_tpu_torch.utils.observe import METRICS
+    from dgraph_tpu_torch.x import keys
+
+    on_card = torch.device(device).type == "cuda"
+    workers = max(2, workers or os.cpu_count() or 2)
+
+    def sweeps():
+        return member_sweep.LAUNCHES if on_card else member_sweep.PLAIN_CALLS
+
+    def topks():
+        return vector_topk.LAUNCHES if on_card else vector_topk.PLAIN_CALLS
+
+    def new_server(name=None):
+        s = server_mod.Server(device=device, data_dir=name and os.path.join(workdir, name))
+        s.slow_query_ms = float("inf")
+        return s
+
+    def close(server):
+        server.kv.sync()
+        server.kv.close()
+
+    def bulk(server, texts, name):
+        ld = ParallelBulkLoader(server, workdir=os.path.join(workdir, name), workers=workers)
+        native = ld._native_ok()
+        chunks = 1 if native else len(ld._chunk(texts))
+        t0 = time.perf_counter()
+        ld.load_texts(texts)
+        return ld, native, chunks, time.perf_counter() - t0
+
+    g = make_graph(fanout, pool)
+    hot = {int(u) for u in g["hot"]}
+    vec_base = int(g["pool"].max()) + 1
+    new_uids = [vec_base + len(V) + j for j in range(n_vec_commits)]
+    qtext = [_vec_text(q) for q in Q[:n_reads]]
+    vec_q = [f'{{ q(func: similar_to(emb_small, {k}, "{t}")) {{ uid }} }}' for t in qtext]
+    ex_i, ex_d = exact_topk(V, Q[:n_reads], k)
+    out = {"step_s": {}}
+    t_lap = [time.perf_counter()]
+
+    def lap(name):
+        """Seconds since the last lap, kept under `name`."""
+        now = time.perf_counter()
+        out["step_s"][name] = now - t_lap[0]
+        t_lap[0] = now
+
+    def check_graph(what, got):
+        for name in QUERIES:
+            want = expected(g, "a" if name == "a" else "b", hot)
+            if extract(name, json.loads(got[name])) != want:
+                raise AssertionError(f"{what}: query {name} != numpy")
+
+    with forced_device(), knobs(GROUP_COMMIT=1), _Capture(member_sweep) as cap, \
+            _VecCapture() as vcap:
+        member_sweep.LAUNCHES = member_sweep.PLAIN_CALLS = 0
+        vector_topk.LAUNCHES = vector_topk.PLAIN_CALLS = 0
+
+        # (10a) the bulk loads
+        src = new_server("src")
+        lease_through(src.zero, new_uids[-1])
+        src.alter(WRITE_SCHEMA)
+        texts = list(nquad_chunks(g))
+        edges = len(g["l1"]) + len(g["l2"]) + len(g["l3"]) + len(g["pool"])  # with the tags
+        ld, native, _, graph_s = bulk(src, texts, "bulk_graph")
+        if not native:
+            raise AssertionError("(10a): the graph load did not take the native reduce")
+        lap("10a graph")
+        src.alter(SMALL_SCHEMA)
+        t0 = time.perf_counter()
+        vtext = vector_nquads(V, vec_base, workers=workers)
+        text_s = time.perf_counter() - t0
+        card_live = on_card and torch.cuda.is_initialized()
+        lv, vnative, chunks, vec_s = bulk(src, [vtext], "bulk_vectors")
+        del vtext
+        idx = src.vector_indexes["emb_small"]
+        rows = np.asarray([idx._rows[vec_base + i] for i in range(len(V))])
+        if vnative or len(idx) != len(V) or not np.array_equal(idx._vecs[rows], V):
+            raise AssertionError("(10a): emb_small does not hold V exactly after the bulk load")
+        lap("10a vectors")
+        out["load"] = {"edges": edges, "nquads": ld.nquads, "s": graph_s,
+                       "edges_per_s": edges / graph_s, "vectors": len(V), "vectors_s": vec_s,
+                       "vectors_per_s": len(V) / vec_s, "text_s": text_s, "workers": workers,
+                       "map_chunks": chunks, "card_live_at_fork": card_live}
+        per = {}
+        answers = {}
+        for name, q in QUERIES.items():
+            c0 = sweeps()
+            answers[name] = _run_query(src, q)
+            per[name] = sweeps() - c0
+        c0 = topks()
+        answers.update({f"v{i}": _run_query(src, q) for i, q in enumerate(vec_q)})
+        per["similar_to"] = topks() - c0
+        check_graph("(10a)", answers)
+        got_rows = [np.sort([int(o["uid"], 16) - vec_base for o in json.loads(answers[f"v{i}"])["q"]])
+                    for i in range(n_reads)]
+        if not near_equal(V, Q[:n_reads], got_rows, ex_d):
+            raise AssertionError("(10a): similar_to(emb_small) != exact top-k beyond near-ties")
+        if per["b"] < 1 or per["similar_to"] < n_reads:
+            raise AssertionError(f"(10a): K1 {per['b']} launches in (b), KV1 "
+                                 f"{per['similar_to']} in {n_reads} similar_to reads")
+        log(f"(10a) bulk load, {workers} workers: {edges} edges and tags in {graph_s:.3f}s "
+            f"({edges / graph_s:.1f} edges/s, native reduce), {len(V)} x {V.shape[1]} vectors "
+            f"in {vec_s:.3f}s ({len(V) / vec_s:.1f} vectors/s, Python reduce, {chunks} map "
+            f"chunks forked with the card live: {card_live}; text made in {text_s:.3f}s); "
+            f"(a)-(d) == numpy, K1 {per['b']} launches in (b), KV1 {per['similar_to']} in "
+            f"{n_reads} similar_to reads == exact top-k outside near-ties")
+        lap("10a reads")
+        close(src)
+        del src, idx
+        gc.collect()
+        t0 = time.perf_counter()
+        src = new_server("src")
+        out["load"]["reopen_s"] = time.perf_counter() - t0
+        ties = _same_answers("(10a) after reopening", _answers(src, vec_q), answers, V, Q,
+                             vec_base, ex_d)
+        log(f"(10a) reopened in {out['load']['reopen_s']:.3f}s: every answer as before "
+            f"(near-ties {ties})")
+        after_10a = answers
+        lap("10a reopen")
+
+        bdir = os.path.join(workdir, "backup")
+        t0 = time.perf_counter()
+        full = _wait_task(src, tasks.enqueue_backup(src, bdir))
+        out["backup"] = {"full_s": time.perf_counter() - t0, "full_records": full["records"],
+                         "full_bytes": disk_bytes(bdir)}
+        if full["type"] != "full":
+            raise AssertionError(f"(10d): the first backup is {full['type']}")
+
+        lap("full backup")
+        # (10c) CDC attached before (10b)'s commits
+        attach_ts = src.zero.read_ts()
+        commits0 = METRICS.value("num_commits")
+        sink1, sink2 = (os.path.join(workdir, f"cdc{i}.ndjson") for i in (1, 2))
+        cdc = cdc_for_uri(src, sink1)
+
+        # (10b) subscriptions
+        rng = np.random.default_rng(17)
+        flips = [int(u) for u in rng.choice(np.unique(g["l3"]), 2 * n_flips + n_final + 3,
+                                            replace=False)]
+
+        def flip(u):
+            tag = "cold" if u in hot else "hot"
+            src.new_txn().mutate_rdf(set_rdf=f'<{hex(u)}> <tag> "{tag}" .', commit_now=True)
+            (hot.add if tag == "hot" else hot.discard)(u)
+
+        def timed(fn, *a):
+            t = time.perf_counter()
+            fn(*a)
+            return (time.perf_counter() - t) * 1e3
+
+        lat = {"plain": [timed(flip, u) for u in flips[:n_flips]]}
+        lap("10b plain flips")
+        subs = Subscriptions(src)
+        fired_b, fired_v = [], []
+        subs.subscribe(QUERIES["b"], fired_b.append)
+        subs.subscribe(vec_q[0], fired_v.append)
+        if len(fired_b) != 1 or extract("b", fired_b[0]["data"]) != expected(g, "b", hot):
+            raise AssertionError("(10b): (b)'s first callback != numpy")
+        c0 = sweeps()
+        lat["subscribed"] = []
+        for i, u in enumerate(flips[n_flips : 2 * n_flips]):
+            lat["subscribed"].append(timed(flip, u))
+            if len(fired_b) != i + 2 or extract("b", fired_b[-1]["data"]) != expected(g, "b", hot):
+                raise AssertionError(f"(10b): after flip {i}, (b) fired {len(fired_b) - 1} "
+                                     "times or != numpy")
+        sweeps_per_commit = (sweeps() - c0) / n_flips
+        lap("10b subscribed flips")
+        for j in range(n_unrelated):
+            src.new_txn().mutate_rdf(set_rdf=f'<{hex(flips[-1 - j])}> <hot_seen> "true" .',
+                                     commit_now=True)
+        if len(fired_b) != n_flips + 1 or len(fired_v) != 1:
+            raise AssertionError("(10b): a commit on an unrelated predicate fired a subscription")
+        # vector commits, each nearer query 0 than every row of V: the
+        # reference re-runs subscriptions before a commit's vectors reach
+        # the index, so callback j shows the vectors of commits before j
+        q0 = Q[0].astype(np.float32)
+        for j, u in enumerate(new_uids):
+            vec = q0.copy()
+            vec[0] += np.float32(1e-3 * (j + 1))
+            src.new_txn().mutate_rdf(set_rdf=f'<{hex(u)}> <emb_small> "{_vec_text(vec)}"'
+                                     "^^<xs:float32vector> .", commit_now=True)
+        seen = [[int(o["uid"], 16) for o in f["data"]["q"]] for f in fired_v[1:]]
+        if len(seen) != n_vec_commits or any(
+                [u for u in s if u in new_uids] != new_uids[:j] for j, s in enumerate(seen)):
+            raise AssertionError(f"(10b): the similar_to subscription fired {len(seen)} times, "
+                                 f"committed vectors seen {[len(set(s) & set(new_uids)) for s in seen]}")
+        now = {int(o["uid"], 16) for o in json.loads(_run_query(src, vec_q[0]))["q"]}
+        if not now >= set(new_uids):
+            raise AssertionError("(10b): a read after the vector commits misses one of them")
+        out["subscriptions"] = {
+            "b_fired": len(fired_b) - 1, "similar_fired": len(seen),
+            "committed_vectors_seen": [len(set(s) & set(new_uids)) for s in seen],
+            "sweeps_per_commit": sweeps_per_commit,
+            "commit_ms": {arm: dict(zip(("p50", "p99"), _p50_p99(ms))) for arm, ms in lat.items()}}
+        log(f"(10b) subscriptions: (b) fired once per flip, == numpy ({n_flips} flips), nothing "
+            f"on {n_unrelated} unrelated commits; similar_to fired {len(seen)} times on "
+            f"{n_vec_commits} vector commits, seeing {out['subscriptions']['committed_vectors_seen']}"
+            f" of them (callbacks run before the commit's vectors reach the index); K1 "
+            f"{sweeps_per_commit:.3f} launches a commit; commit ms {out['subscriptions']['commit_ms']}")
+
+        lap("10b the rest")
+        # (10c) the bank under CDC, then a batch the sink never gets
+        out["bank"] = bank(src, n_accounts, bank_threads, transfers_per_thread)
+        lap("10c bank")
+        t0 = time.perf_counter()
+        if not cdc.flush(timeout_s=600):
+            raise AssertionError("(10c): the CDC queue did not drain")
+        flush_s = time.perf_counter() - t0
+        live = read_sink(sink1)
+        ids = [(ev["meta"]["commit_ts"], ev["meta"]["seq"]) for ev in live]
+        if ids != sorted(ids) or len(set(ids)) != len(ids):
+            raise AssertionError("(10c): sink events out of commit-ts order or ids repeated")
+        committed = committed_events(src.kv, attach_ts)
+        commits = {ts for ts, _ in committed}
+        if _by_id(live) != committed:
+            raise AssertionError(f"(10c): {len(live)} events in the sink, {len(committed)} "
+                                 "committed postings")
+        if cdc.checkpoint != max(commits) or len(commits) != METRICS.value("num_commits") - commits0:
+            raise AssertionError(f"(10c): checkpoint {cdc.checkpoint}, last commit "
+                                 f"{max(commits)}, {len(commits)} commits in the sink")
+        wall = out["bank"]["wall_s"]
+        bank_ev = sum(1 for ev in live if ev["event"]["attr"] in ("acct", "bal"))
+        out["cdc"] = {"events": len(live), "commits": len(commits), "flush_s": flush_s,
+                      "bank_events": bank_ev, "bank_events_per_s": bank_ev / wall}
+        lap("10c checks")
+        faults.install(faults.FaultPlan(seed=1, rules=[
+            dict(point="cdc.emit", action="crash", p=1.0, max=1)]))
+        try:
+            for u in flips[2 * n_flips : 2 * n_flips + n_final]:
+                flip(u)
+            deadline = time.time() + 30
+            while cdc.dead is None and time.time() < deadline:
+                time.sleep(0.02)
+        finally:
+            faults.reset()
+        if cdc.dead is None:
+            raise AssertionError("(10c): the injected emitter crash did not fire")
+        final_top = src.zero.read_ts()
+        close(src)  # no flush: the final batch is committed, not delivered
+        del src, subs, cdc
+        gc.collect()
+        src = new_server("src")
+        t0 = time.perf_counter()
+        cdc2 = cdc_for_uri(src, sink2)
+        if not cdc2.flush(timeout_s=600):
+            raise AssertionError("(10c): the replay did not drain")
+        replay_s = time.perf_counter() - t0
+        cdc2.close()
+        committed = committed_events(src.kv, attach_ts)
+        lost = set(committed) - set(_by_id(read_sink(sink1)))
+        union = _by_id(read_sink(sink1) + read_sink(sink2))
+        if not lost or union != committed:
+            raise AssertionError(f"(10c): {len(lost)} events undelivered before the restart; "
+                                 f"union {len(union)} != committed {len(committed)}")
+        out["cdc"].update({"undelivered": len(lost), "replayed": len(read_sink(sink2)),
+                           "replay_s": replay_s, "final_top_ts": final_top})
+        lap("10c restart and replay")
+        fresh = new_server()
+        fresh.alter(WRITE_SCHEMA)
+        bulk(fresh, texts, "bulk_fresh")
+        del texts
+        fresh.alter(SMALL_SCHEMA)
+        t0 = time.perf_counter()
+        applied = apply_events(fresh, [{"meta": {"commit_ts": ts, "seq": s}, "event": ev}
+                                       for (ts, s), ev in union.items()])
+        out["cdc"]["apply_s"] = time.perf_counter() - t0
+        want_b = _run_query(src, QUERIES["b"])
+        bal = json.loads(_run_query(src, STATE_READS["balances"]))["q"]
+        if (_run_query(fresh, QUERIES["b"]) != want_b
+                or json.loads(_run_query(fresh, STATE_READS["balances"]))["q"] != bal
+                or sum(o["bal"] for o in bal) != n_accounts * BANK_START):
+            raise AssertionError("(10c): the applied events do not answer as the source")
+        del fresh
+        gc.collect()
+        log(f"(10c) CDC: {len(live)} events of {len(commits)} commits in commit-ts order, ids "
+            f"unique, each committed posting once, checkpoint == last commit; bank "
+            f"{out['bank']['transfers']} transfers ({bank_ev / wall:.1f} bank events/s); "
+            f"{len(lost)} events of a final batch undelivered (injected emitter crash), "
+            f"the restart's replay sent {len(read_sink(sink2))} in {replay_s:.3f}s; union == "
+            f"committed set; {applied} commits applied to a fresh Server answer (b) and the "
+            f"balances as the source")
+
+        lap("10c apply")
+        # (10d) backup, restore, export and rollup
+        t0 = time.perf_counter()
+        incr = _wait_task(src, tasks.enqueue_backup(src, bdir))
+        out["backup"].update({"incr_s": time.perf_counter() - t0, "incr_records": incr["records"],
+                              "bytes": disk_bytes(bdir)})
+        if incr["type"] != "incremental" or incr["since"] != full["read_ts"]:
+            raise AssertionError(f"(10d): the second backup is {incr['type']} since {incr['since']}")
+        lap("10d incremental backup")
+        now = _answers(src, vec_q)
+        check_graph("(10d) the source", now)
+        lap("10d source reads")
+        rec = {}
+        with _timing(rec, (server_mod.Server, "_load_persisted_state"),
+                     (server_mod.Server, "rebuild_vector_indexes")):
+            rst = new_server("restored")
+            t0 = time.perf_counter()
+            records = _wait_task(rst, tasks.enqueue_restore(rst, bdir))["records"]
+            rec["total"] = time.perf_counter() - t0
+        lap("10d restore")
+        c0, v0 = sweeps(), topks()
+        got = _answers(rst, vec_q)
+        launched = {"member_sweep": sweeps() - c0, "vector_topk": topks() - v0}
+        ties = _same_answers("(10d) restored", got, now, V, Q, vec_base, ex_d, set(new_uids))
+        if launched["member_sweep"] < 1 or launched["vector_topk"] < n_reads:
+            raise AssertionError(f"(10d): the restored server launched {launched}")
+        out["restore"] = {"records": records, "s": rec["total"],
+                          "records_s": rec["total"] - rec["_load_persisted_state"],
+                          "state_s": rec["_load_persisted_state"] - rec["rebuild_vector_indexes"],
+                          "vector_rebuild_s": rec["rebuild_vector_indexes"],
+                          "launches": launched, "near_ties": ties}
+        lap("10d restored reads")
+        until = new_server()
+        bk.restore(until, bdir, until=full["read_ts"])
+        lap("10d until restore")
+        ties_u = _same_answers("(10d) restored until the full backup", _answers(until, vec_q),
+                               after_10a, V, Q, vec_base, ex_d)
+        del until
+        gc.collect()
+        lap("10d until reads")
+        before = {name: now[name] for name in QUERIES}
+        bk.restore(src, bdir, until=full["read_ts"])  # the warm server
+        lap("10d warm restore")
+        warm = {name: _run_query(src, q) for name, q in QUERIES.items()}
+        if warm != before:
+            raise AssertionError("(10d): a restore into the warm source changed its answers")
+        log(f"(10d) backups through the task queue: full {full['records']} records "
+            f"{out['backup']['full_bytes']} bytes in {out['backup']['full_s']:.3f}s, "
+            f"incremental {incr['records']} records in {out['backup']['incr_s']:.3f}s; restore "
+            f"of both into a fresh Server {rec['total']:.3f}s (records "
+            f"{out['restore']['records_s']:.3f}s, state {out['restore']['state_s']:.3f}s, "
+            f"vector rebuild {rec['rebuild_vector_indexes']:.3f}s): (a)-(d) and {n_reads} "
+            f"similar_to reads == the source (near-ties {ties}), launches {launched}; until "
+            f"the full backup == the source after (10a) (near-ties {ties_u}); restored into "
+            "the warm source, (a)-(d) unchanged (newer commits stay)")
+
+        lap("10d warm reads")
+        rst.alter(drop_attr="emb_small")  # see PERF.md: the RDF splitter on 768-d rows
+        t0 = time.perf_counter()
+        exp = _wait_task(rst, tasks.enqueue_export(rst, os.path.join(workdir, "export"),
+                                                   fmt="rdf", compress=False))
+        export_s = time.perf_counter() - t0
+        lap("10d export")
+        want_b = _run_query(rst, QUERIES["b"])
+        close(rst)
+        del rst
+        gc.collect()
+        reload = new_server()
+        with open(exp["schema"]) as f:
+            reload.alter(f.read())
+        _, rnative, _, reload_s = bulk(reload, [open(exp["data"]).read()], "bulk_export")
+        if not rnative or _run_query(reload, QUERIES["b"]) != want_b:
+            raise AssertionError("(10d): the export, bulk-loaded, answers (b) differently")
+        del reload
+        gc.collect()
+        out["export"] = {"nquads": exp["nquads"], "s": export_s, "reload_s": reload_s}
+        lap("10d reload")
+
+        t0 = time.perf_counter()
+        rolled = rollup_all(src)
+        out["rollup"] = {"keys": rolled, "s": time.perf_counter() - t0}
+        if {name: _run_query(src, q) for name, q in QUERIES.items()} != before:
+            raise AssertionError("(10d): rollup_all changed (a)-(d)")
+        lap("10d rollup")
+        cold = keys.IndexKey("tag", build_tokens(
+            Val(TypeID.STRING, "cold"), src.schema.get("tag").tokenizer_objs())[0])
+        saved = plmod.MAX_PART_UIDS
+        plmod.MAX_PART_UIDS = split_at
+        try:
+            tail = [u for u in flips[2 * n_flips + n_final :] if u in hot]
+            extra = [u for u in np.unique(g["l3"]).tolist() if u in hot and u not in tail]
+            tail = (tail + extra)[:3]
+            for u in tail[:2]:
+                flip(u)  # two deltas on the cold list
+            t0 = time.perf_counter()
+            out["rollup"]["split_keys"] = rollup_all(src)
+            out["rollup"]["split_s"] = time.perf_counter() - t0
+            parts = decode_record(src.kv.get(cold, 1 << 62)[1])[3]
+            flip(tail[2])  # a delta over the split list: the next read decodes its parts
+            c0 = sweeps()
+            got = {name: _run_query(src, q) for name, q in QUERIES.items()}
+            out["rollup"]["sweeps_d"] = sweeps() - c0
+            check_graph("(10d) over the split cold list", got)
+        finally:
+            plmod.MAX_PART_UIDS = saved
+        if len(parts) < 2:
+            raise AssertionError(f"(10d): the cold list did not split: parts {parts}")
+        out["rollup"]["cold_parts"] = len(parts)
+        log(f"(10d) export (RDF, emb_small dropped first) of {exp['nquads']} N-Quads in "
+            f"{export_s:.3f}s, bulk-loaded (native) in {reload_s:.3f}s: (b) == the restored "
+            f"server; rollup_all {rolled} keys in {out['rollup']['s']:.3f}s, (a)-(d) unchanged; "
+            f"MAX_PART_UIDS {split_at}: the cold list rolled into {len(parts)} parts, "
+            f"(a)-(d) == numpy over it (K1 {out['rollup']['sweeps_d']} launches)")
+        close(src)
+        lap("10d split")
+        out["launches"] = {"member_sweep": sweeps(), "vector_topk": topks()}
+    out["sweep_shapes"] = cap.by_shape
+    out["captured"] = (vcap.topk, vcap.slabs)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # KV1's regime switch, measured (--crossover)
 # ---------------------------------------------------------------------------
 
@@ -2229,6 +2839,38 @@ def topk_crossover():
 # ---------------------------------------------------------------------------
 
 
+def data_in_and_out(V, Q, json_rate, card, t_start):
+    """Phase 10 in a temporary directory, then K1 against its plain
+    version at every shape it took and KV1 at every site; prints as it
+    goes. Returns the measurements."""
+    import tempfile
+
+    print("[10] data in and out on the card: bulk loads, subscriptions, CDC, backup, "
+          "restore, export, rollup; at " + card, flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ops_") as d:
+        ops = serve_ops("cuda", d, V, Q, log=lambda m: print("    " + m, flush=True))
+    print(f"    bulk load {ops['load']['edges_per_s']:.1f} edges/s and "
+          f"{ops['load']['vectors_per_s']:.1f} vectors/s; phase 8's mutate_json "
+          + (f"{json_rate:.1f} edges/s" if json_rate else "not measured in this run"),
+          flush=True)
+    if ops["load"]["map_chunks"] < 2 or not ops["load"]["card_live_at_fork"]:
+        raise AssertionError(f"(10a): the vector load did not fork its map workers with the "
+                             f"card live: {ops['load']}")
+    if min(ops["launches"].values()) < 1:
+        raise AssertionError(f"(10) a kernel did not launch: {ops['launches']}")
+    bad = {k: n for k, n in sweep_shapes_equal(ops["sweep_shapes"]).items() if n}
+    if bad:
+        raise AssertionError(f"(10) K1 != plain at shapes (n, pa, pb): {bad}")
+    print(f"    K1 launches {ops['launches']['member_sweep']}, equal to plain at every shape "
+          f"(n, pa, pb) it took: {sorted(ops.pop('sweep_shapes'))}", flush=True)
+    served10 = served_kernels(ops.pop("captured"))
+    for site, r in served10.items():
+        print(f"    {site} (phase 10 inputs): equal to plain; {_fmt(r)}", flush=True)
+    print("    [10] " + json.dumps(ops), flush=True)
+    print(f"    total {time.perf_counter() - t_start:.3f}s", flush=True)
+    return ops
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2248,6 +2890,8 @@ def main(argv=None) -> int:
     ap.add_argument("--crossover", action="store_true",
                     help="after the build, time KV1's two regimes against its switch, "
                          "and stop")
+    ap.add_argument("--ops-only", action="store_true",
+                    help="after the build, run phase 10 alone (on rows made anew), and stop")
     opts = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2269,6 +2913,10 @@ def main(argv=None) -> int:
         print("[crossover] KV1 device times in ms at " + card + "; 'rule' is the built "
               "kernel", flush=True)
         topk_crossover()
+        return 0
+    if opts.ops_only:
+        V, Q = make_corpus()
+        data_in_and_out(V[:100_000].copy(), Q, None, card, t_start)
         return 0
 
     print("[3] member sweep vs plain (exact), times in ms at " + card, flush=True)
@@ -2337,11 +2985,13 @@ def main(argv=None) -> int:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
                 print(f"    [{arm}] DGRAPH_TPU_STORAGE={arm}, data_dir {d}, {len(small_V)} "
                       "vectors", flush=True)
-                writes[arm] = serve_writes("cuda", d, small_V, all_Q,
+                # (u1) and (u3) at half their default depth, to leave
+                # phase 10 room within the time limit
+                writes[arm] = serve_writes("cuda", d, small_V, all_Q, upserts_per_thread=250,
+                                           transfers_per_thread=125,
                                            log=lambda m: print("      " + m, flush=True))
         finally:
             config.unset_env("STORAGE")
-    del small_V
     for arm, w in writes.items():
         print(f"    [{arm}] " + json.dumps({
             "load_edges_per_s": w["load"]["per_s"], "vectors_s": w["load"]["vectors_s"],
@@ -2364,7 +3014,6 @@ def main(argv=None) -> int:
           f"(n, pa, pb) it took: {sorted(front['graph'].pop('sweep_shapes'))}", flush=True)
     front["vectors"] = front_vectors(v.pop("server"), all_Q, named=v["named"],
                                      log=lambda m: print("    " + m, flush=True))
-    del all_Q
     launches9 = front["vectors"]["launches"]
     if min(launches9.values()) < 1:
         raise AssertionError(f"(9) a vector kernel did not launch: {launches9}")
@@ -2375,23 +3024,26 @@ def main(argv=None) -> int:
                                                **launches9}, **front}), flush=True)
     print(f"    total {time.perf_counter() - t_start:.3f}s", flush=True)
 
+    ops = data_in_and_out(small_V, all_Q, writes["mem"]["load"]["per_s"], card, t_start)
+    del small_V, all_Q
+
     # the kernels' rows: each at the served shape that moves most bytes
     def heaviest(prefix):
         return max((r for site, r in served.items() if site.startswith(prefix)),
                    key=lambda r: r["bound_ms"])
 
+    sweep_paths = {"4": s["launches"], **{
+        f"8 {arm} {step}": n for arm, w in writes.items() for step, n in (
+            ("u2", w["u2"]["sweeps"]),
+            ("restart", w["after_restart_launches"]["member_sweep"]))},
+        "9": front["graph"]["sweeps"], "10": ops["launches"]["member_sweep"]}
     rows = [{
         "name": "member_sweep",
         "route": "cuda",
         "source": "dgraph_tpu_torch/csrc/member_sweep.cu",
         "replaces": "dgraph_tpu/ops/pallas_setops.py:53",
-        "launches": s["launches"] + sum(w["u2"]["sweeps"] + w["after_restart_launches"][
-            "member_sweep"] for w in writes.values()) + front["graph"]["sweeps"],
-        "launches_by_path": {"4": s["launches"], **{
-            f"8 {arm} {step}": n for arm, w in writes.items() for step, n in (
-                ("u2", w["u2"]["sweeps"]),
-                ("restart", w["after_restart_launches"]["member_sweep"]))},
-            "9": front["graph"]["sweeps"]},
+        "launches": sum(sweep_paths.values()),
+        "launches_by_path": sweep_paths,
         "max_abs_err": main["max_abs_err"],
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],
@@ -2409,6 +3061,8 @@ def main(argv=None) -> int:
             by_path.update({f"8 {arm} restart": w["after_restart_launches"]["vector_topk"]
                             for arm, w in writes.items()})
         by_path["9"] = launches9[name]
+        if name in ops["launches"]:
+            by_path["10"] = ops["launches"][name]
         rows.append({
             "name": name, "route": "cuda", "source": f"dgraph_tpu_torch/csrc/{src}",
             "replaces": ref, "launches": sum(by_path.values()), "launches_by_path": by_path,

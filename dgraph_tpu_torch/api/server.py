@@ -19,9 +19,12 @@ Vector predicates (`float32vector @index(hnsw(...))`) get a
 `models.vector.VectorIndex` on the same device, fed at commit and rebuilt
 on restart. `enable_acl` / `enable_audit` / `login` bring the reference's
 ACL (every entry point takes an `access_jwt`, whose namespace the
-mutation walkers write into) and its audit log.
-
-Left out of the port so far (see ROADMAP): CDC and subscriptions.
+mutation walkers write into) and its audit log. Commits feed change
+data capture (admin/cdc.py: `_cdc`, emitted in commit-ts order inside
+the group-commit barrier, or inline on the serial path) and query
+subscriptions (api/subscriptions.py: `_subscriptions`, re-run on the
+committer's thread before the commit's vectors reach their index, in
+the reference's order).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import numpy as np
 
 from dgraph_tpu_torch import dql
 from dgraph_tpu_torch.acl.acl import READ, WRITE, AclError, AclManager
+from dgraph_tpu_torch.admin.export import _schema_line
 from dgraph_tpu_torch.audit.audit import AuditLog
 from dgraph_tpu_torch.loaders.rdf import NQuad, parse_rdf
 from dgraph_tpu_torch.posting import colwrite
@@ -615,8 +619,8 @@ class Server:
 
     def _commit(self, txn: Txn) -> int:
         # a commit-time consumer of Posting objects that appeared after
-        # txn creation (vector index) forces collected columns back to
-        # the serial representation
+        # txn creation (CDC sink, subscription, vector index) forces
+        # collected columns back to the serial representation
         colwrite.commit_guard(txn, self)
         # admission costs writes too: a commit charges the same
         # in-flight token budget queries draw from (retryable 429 over
@@ -716,6 +720,17 @@ class Server:
                             self._snapshot_ts, m.commit_ts
                         )
                         self.zero.applied(m.commit_ts)
+                # CDC rides the FIFO barrier, not _post_commit: members
+                # here are commit-ts ascending and barriers run in
+                # ticket order, so the sink stream stays strictly
+                # commit-ts ordered even across batches
+                cdc = getattr(self, "_cdc", None)
+                if cdc is not None:
+                    for m in committed:
+                        if m.error is None:
+                            cdc.emit_commit(
+                                m.commit_ts, m.txn.cache.deltas
+                            )
             finally:
                 ok = 0
                 for m in committed:
@@ -737,10 +752,14 @@ class Server:
 
     def _post_commit(self, txn: Txn, commit_ts: int) -> None:
         """Per-txn post-commit work on the committer's own thread (stats
-        feed, vector ingest): everything after the apply barrier that
-        doesn't need batch ordering."""
+        feed, subscriptions, vector ingest): everything after the apply
+        barrier that doesn't need batch ordering. CDC emits in the
+        barrier."""
         self._feed_stats(txn.cache.deltas)
         colwrite.feed_col_stats(self.stats, txn)
+        subs = getattr(self, "_subscriptions", None)
+        if subs is not None:
+            subs.on_commit(txn.cache.deltas)
         ingest_vectors(self.vector_indexes, txn.cache.deltas)
 
     def _gc_serial(self, txn: Txn) -> int:
@@ -786,6 +805,12 @@ class Server:
         self.serving.on_commit()  # commit-epoch plan invalidation
         self._feed_stats(txn.cache.deltas)
         colwrite.feed_col_stats(self.stats, txn)
+        cdc = getattr(self, "_cdc", None)
+        if cdc is not None:
+            cdc.emit_commit(commit_ts, txn.cache.deltas)
+        subs = getattr(self, "_subscriptions", None)
+        if subs is not None:
+            subs.on_commit(txn.cache.deltas)
         # vector index ingestion at commit (factory seam)
         ingest_vectors(self.vector_indexes, txn.cache.deltas)
         return commit_ts
@@ -1562,43 +1587,6 @@ class Server:
                     else {"enabled": False}
                 )
         return {"data": data}
-
-
-def _schema_line(su) -> str:
-    """One schema line for a predicate, as the store persists it (a copy
-    of the reference's admin/export.py helper)."""
-    tname = {
-        TypeID.DEFAULT: "default",
-        TypeID.STRING: "string",
-        TypeID.INT: "int",
-        TypeID.FLOAT: "float",
-        TypeID.BOOL: "bool",
-        TypeID.DATETIME: "datetime",
-        TypeID.GEO: "geo",
-        TypeID.UID: "uid",
-        TypeID.PASSWORD: "password",
-        TypeID.VFLOAT: "float32vector",
-    }.get(su.value_type, "default")
-    t = f"[{tname}]" if su.is_list else tname
-    directives = []
-    if su.tokenizers or su.vector_specs:
-        toks = list(su.tokenizers)
-        for vs in su.vector_specs:
-            opts = ",".join(f'{k}:"{v}"' for k, v in vs.options.items())
-            toks.append(f"{vs.name}({opts})")
-        directives.append(f"@index({', '.join(toks)})")
-    if su.directive_reverse:
-        directives.append("@reverse")
-    if su.count:
-        directives.append("@count")
-    if su.upsert:
-        directives.append("@upsert")
-    if su.lang:
-        directives.append("@lang")
-    if su.unique:
-        directives.append("@unique")
-    d = (" " + " ".join(directives)) if directives else ""
-    return f"{su.predicate}: {t}{d} ."
 
 
 def _query_preds(blocks) -> list:

@@ -11,7 +11,10 @@
   a second Server opened on that directory answers as the first did;
   then the first query, asked again, hits the plan cache,
   `query_rdf` answers in N-Quads, and with ACL on groot logs in and an
-  authorised query answers as it did with ACL off.
+  authorised query answers as it did with ACL off; last, on a new
+  Server, a subscription fires on a commit, a CDC file sink holds the
+  commit's event, a backup restores into another Server that answers as
+  the first, and `bulk_load_rdf` loads N-Quads that a query reads back.
 - Every module the port copied from the reference equals it but for the
   rebinding of `dgraph_tpu` to `dgraph_tpu_torch` and for citations of
   the upstream Go sources, written `dgraph/<path>` in the port; the
@@ -168,6 +171,31 @@ tok = s.login("groot", "password")["accessJwt"]
 authed = s.query(q0, access_jwt=tok)
 print(json.dumps([hits, again["data"],
                   sorted(rdf.strip().splitlines()), first, authed["data"]]))
+from dgraph_tpu_torch.admin.backup import backup, restore
+from dgraph_tpu_torch.admin.cdc import cdc_for_uri
+from dgraph_tpu_torch.api.subscriptions import Subscriptions
+from dgraph_tpu_torch.loaders.bulk import bulk_load_rdf
+o = Server(device="cpu")
+o.alter("name: string @index(exact) .")
+fired = []
+Subscriptions(o).subscribe('{ q(func: has(name)) { name } }', fired.append)
+d = tempfile.mkdtemp()
+cdc = cdc_for_uri(o, d + "/cdc.ndjson")
+o.new_txn().mutate_rdf(set_rdf='<0x5> <name> "e" .', commit_now=True)
+cdc.flush()
+cdc.close()
+events = [json.loads(l)["event"] for l in open(d + "/cdc.ndjson")]
+backup(o, d + "/bk")
+r = Server(device="cpu")
+restore(r, d + "/bk")
+b = Server(device="cpu")
+b.alter("name: string @index(exact) .")
+bulk_load_rdf(b, '<0x7> <name> "f" .')
+shutil.rmtree(d)
+print(json.dumps([[f["data"] for f in fired],
+                  [(e["operation"], e["uid"], e["attr"], e["value"]) for e in events],
+                  r.query('{ q(func: eq(name, "e")) { uid name } }')["data"],
+                  b.query('{ q(func: has(name)) { uid name } }')["data"]]))
 print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "dgraph_tpu")))
 """
 
@@ -180,7 +208,7 @@ def test_runs_with_jax_and_reference_blocked():
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
     )
     assert got.returncode == 0, got.stderr[-3000:]
-    data, similar, restart, front, mods = got.stdout.strip().splitlines()[-5:]
+    data, similar, restart, front, ops, mods = got.stdout.strip().splitlines()[-6:]
     assert json.loads(data) == {
         "q": [{"friend": [{"uid": "0x3"}, {"uid": "0x100000004"}]}]
     }
@@ -198,6 +226,11 @@ def test_runs_with_jax_and_reference_blocked():
         '<0x2> <name> "a" .',
     ]
     assert authed == again == first == json.loads(data)
+    fired, events, restored, bulk = json.loads(ops)
+    assert fired == [{"q": []}, {"q": [{"name": "e"}]}]
+    assert events == [["set", 5, "name", "e"]]
+    assert restored == {"q": [{"uid": "0x5", "name": "e"}]}
+    assert bulk == {"q": [{"uid": "0x7", "name": "f"}]}
     assert mods == "[]"
 
 
