@@ -48,8 +48,9 @@ Phases, each of which fails the run when it fails:
   8. the write path, once on the WAL-backed store and once with
      DGRAPH_TPU_STORAGE=lsm: a `Server(device="cuda", data_dir=<tmp>)`
      with group commit on and the device path forced loads phase 4's
-     graph and phase 7's 100,000 `emb_small` rows through `mutate_json`
-     (the answers must equal numpy), then runs (u1) 8 threads x 250
+     graph and phase 7's `emb_small` rows (100,000 on the WAL store,
+     25,000 on lsm) through `mutate_json` (the answers must equal
+     numpy), then runs (u1) 8 threads x 250
      email upserts (Dgraph's Upsert Block example; each email must end
      with one uid), (u2) an upsert whose query block is query (b)'s
      filtered level 3 (K1 must launch; `has(hot_seen)` must equal numpy)
@@ -66,7 +67,7 @@ Phases, each of which fails the run when it fails:
      host path byte for byte, one triple per edge of the JSON answer;
      (9c) the result cache over (a)-(d) (hits equal misses), then one
      committed edge that the next (b), a miss, must show; (9a) 16 client
-     threads x 64 plain `similar_to` reads on `emb` (IVF) and `emb_small`
+     threads x 32 plain `similar_to` reads on `emb` (IVF) and `emb_small`
      (brute) at BATCH_WINDOW_US 0 and 200, every answer equal to the same
      query's solo answer, with QPS, p50/p99, the coalesced batches and the
      card's idle share over one traced window; (9e) the same clients with
@@ -88,7 +89,7 @@ Phases, each of which fails the run when it fails:
      callback shows the vectors of the commits before it: subscriptions
      run before a commit's vectors reach the index, as in the
      reference), with commit latency with and without them; (10c) CDC to
-     an ndjson file over (10b) and the JSON bank (8 threads x 100
+     an ndjson file over (10b) and the JSON bank (8 threads x 50
      transfers): commit-ts order, unique ids, one event per committed
      posting, the checkpoint at the last commit; then a final batch that
      an injected emitter crash keeps from the sink, a restart and a
@@ -102,6 +103,28 @@ Phases, each of which fails the run when it fails:
      the second with MAX_PART_UIDS 50,000, which splits the `cold` index
      list ((a)-(d) equal to numpy over its parts). K1 and KV1 are held
      against their plain versions at every shape and site phase 10 gave
+     them;
+ 11. the cluster (`serve_cluster`), group commit on, the columnar path
+     off and the device path forced, the coordinator on the card: (11a)
+     a `ProcCluster` of 2 groups x 3 replica processes loads phase 4's
+     graph at a tenth of its scale (10 level-1 nodes, rows 100 wide, a
+     pool of 20,000: 121,010 N-Quads; `--cluster-only` loads all
+     1,210,100) through cluster transactions,
+     `child` and `tag` on different groups, and answers (a)-(d) equal to
+     the host path and numpy (K1 must launch in (b)), with each query's
+     RPCs; no replica may hold a CUDA context; (11b) the leader of
+     `tag`'s group is SIGKILLed, a flip of 100 tags commits, (b) equals
+     numpy with the flips, the victim restarts, applies past the commit
+     and answers (b) alone by follower reads; (11c) `tag` moves to the
+     other group while two threads read (b) back to back, every answer
+     equal and one read straddling the ownership flip;
+     (11d) the cluster is closed, no replica outlives it, and a new one
+     on the same directory answers (a)-(d) byte for byte at the last
+     snapshot the client saw; (11e) an in-process `DistributedCluster`
+     (2 x 3, a replicated Zero) commits 1,000 of the `emb_small` rows
+     through cluster transactions and answers 16 `similar_to` reads
+     equal to the exact top-k (KV1 must launch). K1 and KV1 are held
+     against their plain versions at every shape and site phase 11 gave
      them.
 
 `--profile` adds, for the named queries (a-d of phase 4, e-i of phase
@@ -110,7 +133,7 @@ Phases, each of which fails the run when it fails:
 runs phases 1-2 and then, in place of the others, measures where KV1's
 radix regime starts to beat its one-pass regime (`topk_crossover`);
 `--ops-only` runs phases 1-2 and then phase 10 alone, on rows made
-anew.
+anew; `--cluster-only` likewise phase 11, on the full graph.
 
 The second-to-last lines are the kernel table (JSON) and the card; the
 last line is `{"ok": true, "device": {...}}`. Without a CUDA card the
@@ -153,11 +176,13 @@ QUERIES = {
 # ---------------------------------------------------------------------------
 
 
-def make_graph(fanout=100, pool=200_000, seed=7, hot_every=100):
+def make_graph(fanout=100, pool=200_000, seed=7, hot_every=100, roots=None):
     """The fan-out graph of bench.py (level-3 targets drawn from a pool
     with `np.random.default_rng(seed)`), with half of the pool at or
-    above 2^32 and every `hot_every`-th pool node tagged hot."""
+    above 2^32 and every `hot_every`-th pool node tagged hot. `roots`
+    level-1 nodes (default `fanout`), each row `fanout` wide."""
     f = fanout
+    r = f if roots is None else roots
     rng = np.random.default_rng(seed)
     half = pool // 2
     pool_uids = np.concatenate(
@@ -165,17 +190,18 @@ def make_graph(fanout=100, pool=200_000, seed=7, hot_every=100):
     ).astype(np.uint64)
     return {
         "f": f,
-        "l1": (0x100 + np.arange(f)).astype(np.uint64),
-        "l2": (0x10000 + np.arange(f * f)).astype(np.uint64),
-        "l3": pool_uids[rng.integers(0, pool, size=f * f * f)],
+        "l1": (0x100 + np.arange(r)).astype(np.uint64),
+        "l2": (0x10000 + np.arange(r * f)).astype(np.uint64),
+        "l3": pool_uids[rng.integers(0, pool, size=r * f * f)],
         "pool": pool_uids,
         "hot": pool_uids[::hot_every],
     }
 
 
-def nquad_chunks(g, chunk=50_000):
+def nquad_chunks(g, chunk=50_000, tag_chunk=None):
     """RDF text in commits of about `chunk` N-Quads: the edges level by
-    level, then one tag per pool node."""
+    level, then one tag per pool node, `tag_chunk` (default `chunk`) a
+    commit."""
     f = g["f"]
     lines = [f"<0x1> <child> <{hex(int(v))}> ." for v in g["l1"]]
     for i, v in enumerate(g["l2"]):
@@ -190,10 +216,11 @@ def nquad_chunks(g, chunk=50_000):
                 lines.append(f"<{src}> <child> <{hex(int(t))}> .")
         yield "\n".join(lines)
     hot = set(g["hot"].tolist())
-    for s in range(0, len(g["pool"]), chunk):
+    tag_chunk = tag_chunk or chunk
+    for s in range(0, len(g["pool"]), tag_chunk):
         yield "\n".join(
             f'<{hex(u)}> <tag> "{"hot" if u in hot else "cold"}" .'
-            for u in g["pool"][s : s + chunk].tolist()
+            for u in g["pool"][s : s + tag_chunk].tolist()
         )
 
 
@@ -312,7 +339,7 @@ def profile_query(server, q, log=print, top=12, reps=5):
             log("      " + line.strip())
     best = None
     for _ in range(3):  # a trace now and then comes back without kernels
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
             for _ in range(reps):
                 run()
@@ -453,17 +480,26 @@ def kernel_device_ms(fn, reps=20, name="member_sweep_kernel"):
     call that launches several. The trace may hold fewer launches than
     were made (calls whose trace came back short are noted in
     TRACE_SHORT), so each kernel's time is its traced average times its
-    launches per call."""
+    launches per call. How many traces and calls it took is left in
+    LAST_TRACE."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     per_call = {name: 1} if isinstance(name, str) else dict(name)
     fn()
+    lead = torch.empty(1, device="cuda")
     torch.cuda.synchronize()
     seen = []
-    for _ in range(3):  # a trace now and then comes back without a kernel
+    # A trace loses the first kernels launched in it: 7 early in a run,
+    # 17 and once 74 late in it, when a trace of `reps` calls of a small
+    # kernel can hold none. TRACE_LEAD_IN launches of a fill go first to
+    # take that loss; a trace that still holds no kernel of fn is taken
+    # again, ten times longer. TRACE_SHORT says where launches were lost.
+    for tries, n_calls in enumerate((reps, 10 * reps, 10 * reps), 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(TRACE_LEAD_IN):
+                lead.zero_()
+            for _ in range(n_calls):
                 fn()
             torch.cuda.synchronize()
         got = {}
@@ -472,17 +508,48 @@ def kernel_device_ms(fn, reps=20, name="member_sweep_kernel"):
                 if e.count and n in e.key:
                     t, c = got.get(n, (0.0, 0))
                     got[n] = (t + e.self_device_time_total, c + e.count)
+        lost = _lost_launches(prof)
         if set(got) == {n for n, c in per_call.items() if c}:
             for n, (_, c) in got.items():
-                if c != reps * per_call[n]:
-                    TRACE_SHORT.append((n, c, reps * per_call[n]))
+                if c != n_calls * per_call[n]:
+                    TRACE_SHORT.append((n, c, n_calls * per_call[n], lost))
+            LAST_TRACE.update(traces=tries, calls=n_calls)
             return sum(t / c * per_call[n] for n, (t, c) in got.items()) / 1e3
+        TRACE_EMPTY.append((sorted(per_call), n_calls, lost))
         seen = [e.key[:60] for e in prof.key_averages()]
-    raise AssertionError(f"no device time traced for {sorted(per_call)} in 3 traces; "
+    raise AssertionError(f"no device time traced for {sorted(per_call)} in {tries} traces; "
                          f"saw {seen}")
 
 
-TRACE_SHORT = []  # (kernel, calls traced, calls made) where they differ
+def _lost_launches(prof):
+    """Where a trace lost kernels: the positions, in launch order, of the
+    kernel launches whose kernel record (same CUPTI correlation id) the
+    trace does not hold, as "first n", "last n" or a list, out of all
+    launches traced. A diagnostic only: a trace it cannot read says so."""
+    try:
+        evs = prof.profiler.kineto_results.events()
+        launches = sorted((e for e in evs if e.name().startswith("cudaLaunchKernel")),
+                          key=lambda e: e.start_ns())
+        ran = {e.correlation_id() for e in evs if str(e.device_type()).endswith("CUDA")}
+    except Exception as e:  # noqa: BLE001 - the profiler's private API moved
+        return f"not read ({type(e).__name__}: {e})"
+    lost = [i for i, e in enumerate(launches) if e.correlation_id() not in ran]
+    if ran and len(lost) == len(launches):
+        return f"no launch linked to a kernel record, {len(launches)} launches"
+    n = len(lost)
+    if lost == list(range(n)):
+        where = f"first {n}"
+    elif lost == list(range(len(launches) - n, len(launches))):
+        where = f"last {n}"
+    else:
+        where = str(lost[:12])
+    return f"{where} of {len(launches)} launches"
+
+
+TRACE_LEAD_IN = 128
+LAST_TRACE = {}  # traces and calls per trace that the last kernel_device_ms took
+TRACE_EMPTY = []  # (kernels, calls, where launches were lost) of traces without a kernel
+TRACE_SHORT = []  # (kernel, calls traced, calls made, lost launches) where they differ
 
 
 def _to_i64(x):
@@ -591,6 +658,7 @@ def measure_sweep(A, LA, B, LB, reps=7):
         "library_agrees": lib_agrees,
         "ms": _events_ms(lambda: member_sweep.membership_batch(A, LA, B, LB), reps),
         "device_ms": kernel_device_ms(lambda: member_sweep.membership_batch(A, LA, B, LB)),
+        "device_trace": dict(LAST_TRACE),
         "plain_ms": _events_ms(
             lambda: member_sweep.membership_batch_plain(A, LA, B, LB), max(3, reps // 2)
         ),
@@ -690,10 +758,8 @@ def sweep_grid():
         if r["mismatches"] or not r["library_agrees"]:
             raise AssertionError(f"{kind} n={m} pa={pa} pb={pb}: {r}")
         cut = f" (n cut from {n})" if m != n else ""
-        print(f"    {kind} n={m}{cut} pa={pa} pb={pb}: equal; kernel {r['ms']:.6f} "
-              f"(device {r['device_ms']:.6f}) plain {r['plain_ms']:.6f} "
-              f"library {r['library_ms']:.6f} bound {r['bound_ms']:.6f} "
-              f"({r['bound_by']}); rows {r['regimes']}", flush=True)
+        print(f"    {kind} n={m}{cut} pa={pa} pb={pb}: equal; " + _fmt(r)
+              + f"; rows {r['regimes']}", flush=True)
         del rows
 
 
@@ -820,6 +886,7 @@ def measure_topk(args, reps=7):
             args["x"].shape[0],
             args["x"].shape[1] if args.get("col_index") is None else args["col_index"].shape[0],
             args["k"])),
+        "device_trace": dict(LAST_TRACE),
         "plain_ms": _events_ms(lambda: vector_topk.topk_plain(**args), max(3, reps // 2)),
         "library_ms": _events_ms(library_topk(**args), reps),
         "bound_ms": bound,
@@ -853,6 +920,7 @@ def measure_slabs(args, reps=7):
         "max_abs_err": float(diff[~pad].max()) if bool((~pad).any()) else 0.0,
         "ms": _events_ms(kernel, reps),
         "device_ms": kernel_device_ms(kernel, name="slab_scan_kernel"),
+        "device_trace": dict(LAST_TRACE),
         "plain_ms": _events_ms(lambda: ivf_scan.slab_distances_plain(*args), 3),
         "library_ms": _events_ms(library_slabs(*args), reps),
         "bound_ms": bound,
@@ -861,7 +929,9 @@ def measure_slabs(args, reps=7):
 
 
 def _fmt(r):
-    return (f"kernel {r['ms']:.6f} (device {r['device_ms']:.6f}) plain {r['plain_ms']:.6f} "
+    tr = r["device_trace"]
+    return (f"kernel {r['ms']:.6f} (device {r['device_ms']:.6f}, trace {tr['traces']} of "
+            f"{tr['calls']} calls) plain {r['plain_ms']:.6f} "
             f"library {r['library_ms']:.6f} bound {r['bound_ms']:.6f} ({r['bound_by']}); "
             f"max abs err {r['max_abs_err']:.3g}")
 
@@ -2848,7 +2918,10 @@ def data_in_and_out(V, Q, json_rate, card, t_start):
     print("[10] data in and out on the card: bulk loads, subscriptions, CDC, backup, "
           "restore, export, rollup; at " + card, flush=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ops_") as d:
-        ops = serve_ops("cuda", d, V, Q, log=lambda m: print("    " + m, flush=True))
+        # the bank at 8 x 50 transfers (8 x 100 before phase 11), for the
+        # time limit
+        ops = serve_ops("cuda", d, V, Q, transfers_per_thread=50,
+                        log=lambda m: print("    " + m, flush=True))
     print(f"    bulk load {ops['load']['edges_per_s']:.1f} edges/s and "
           f"{ops['load']['vectors_per_s']:.1f} vectors/s; phase 8's mutate_json "
           + (f"{json_rate:.1f} edges/s" if json_rate else "not measured in this run"),
@@ -2869,6 +2942,464 @@ def data_in_and_out(V, Q, json_rate, card, t_start):
     print("    [10] " + json.dumps(ops), flush=True)
     print(f"    total {time.perf_counter() - t_start:.3f}s", flush=True)
     return ops
+
+
+# ---------------------------------------------------------------------------
+# The cluster (phase 11)
+# ---------------------------------------------------------------------------
+
+# phase 8's lsm arm: 25,000 of the 100,000 `emb_small` rows (all of them
+# before phase 11; 30.0 s to load, 7.26 s to rebuild in PR 5's run)
+LSM_VECTORS = 25_000
+
+CLUSTER_SCHEMA = "child: [uid] .\ntag: string @index(exact) ."
+# (11e)'s rows: each written key asks the replicated Zero for its tablet,
+# one in-process Raft round a key (2,000 rows: 49.7 s on the H100 machine)
+CLUSTER_VECTORS = 1_000
+# The graph of phase 11 in the whole script: a tenth of phase 4's (10
+# level-1 nodes over a pool of 20,000). Every remote read is one RPC per
+# key, so the full graph's (c) alone takes about 200,000 RPCs a read, and
+# with its load more than the time limit leaves after phases 1-10;
+# `--cluster-only` runs phase 11 on the full graph (PERF.md section 4).
+CLUSTER_CUT = {"roots": 10, "pool": 20_000}
+CLUSTER_TAG_CHUNK = 2_000  # indexed values a commit (see serve_cluster)
+CLUSTER_MODULES = ("dgraph_tpu_torch.worker.alpha_process",
+                   "dgraph_tpu_torch.zero.zero_process")
+
+
+class _RpcCount:
+    """Counts the coordinator's RPCs (`RpcPool.call`: reads, health
+    probes and proposals; the pool's heartbeats bypass it), delegating
+    every call unchanged."""
+
+    def __init__(self, pool):
+        import threading
+
+        self.pool, self.real, self.n = pool, pool.call, 0
+        self._lock = threading.Lock()
+
+    def __call__(self, *a, **kw):
+        with self._lock:
+            self.n += 1
+        return self.real(*a, **kw)
+
+    def __enter__(self):
+        self.pool.call = self
+        return self
+
+    def __exit__(self, *exc):
+        del self.pool.call
+
+
+def cluster_children(modules=CLUSTER_MODULES):
+    """{pid: module} of this process's live replicas running `modules`."""
+    import os
+
+    out = {}
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            with open(f"/proc/{pid}/cmdline") as f:
+                cmd = f.read().split("\0")
+        except (OSError, ValueError, IndexError):
+            continue  # gone meanwhile
+        if ppid == os.getpid() and any(m in cmd for m in modules):
+            out[int(pid)] = next(m for m in cmd if m in modules)
+    return out
+
+
+def check_replicas_off_card(cluster, on_card):
+    """No replica of `cluster` holds a CUDA context: none maps the
+    driver library, and nvidia-smi lists none of them (at most the
+    coordinator). Returns what nvidia-smi listed."""
+    import os
+
+    pids = {p.pid for p in cluster.procs.values() if p.poll() is None}
+    if set(cluster_children()) != pids:
+        raise AssertionError(f"replicas {sorted(pids)} != live children {cluster_children()}")
+    for pid in pids:
+        with open(f"/proc/{pid}/maps") as f:
+            if "libcuda" in f.read():
+                raise AssertionError(f"replica {pid} mapped the CUDA driver")
+    if not on_card:
+        return []
+    apps = [line.split(",")[0].strip() for line in subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines() if line.strip()]
+    if {int(a) for a in apps if a.isdigit()} & pids or len(apps) > 1:
+        raise AssertionError(f"nvidia-smi lists {apps}; script {os.getpid()}, replicas "
+                             f"{sorted(pids)}")
+    return apps
+
+
+def serve_cluster(device, workdir, V, Q, fanout=100, roots=None, pool=200_000, n_flips=100,
+                  n_reads=16, k=10, chunk=10_000, vec_chunk=1000, log=print):
+    """Phase 11 in `workdir`, the coordinator on `device`, group commit on,
+    the columnar path off and the device path forced. (11a) a
+    `ProcCluster` of 2 groups x 3 replica processes loads the fan-out
+    graph (rows `fanout` wide under `roots` level-1 nodes, over a pool of
+    `pool`) through cluster transactions and answers (a)-(d); (11b) the
+    leader of `tag`'s group is killed, a flip of `n_flips` tags commits,
+    the victim restarts, catches up and answers (b) alone by follower
+    reads; (11c) `tag` moves to the other group while two threads read
+    (b) back to back, the flip held until a read is in flight, so that
+    one read straddles it; (11d) the cluster is closed and a new one
+    opened on `workdir` answers (a)-(d) as before at the last snapshot
+    the client saw; (11e) an in-process `DistributedCluster` (2 x 3, a
+    replicated Zero) commits the vectors V through cluster RDF
+    transactions and answers `n_reads` similar_to reads. Every answer is
+    held to numpy (and the graph's to the host path); K1's inputs per
+    shape and KV1's per site are kept. Returns the measurements; raises
+    when a check fails.
+
+    Commits carry `chunk` N-Quads (CLUSTER_TAG_CHUNK of the indexed
+    tags) and a move's proposals 256 KiB: a replica answers a proposal
+    once it has applied it, and a second commit of 10,000 indexed values
+    into one group (or a 4 MiB move chunk of them) can outlast the
+    proposal's 15 s RPC timeout (the full graph's first run failed so),
+    which commits of 2,000 do not. Every remote read is one RPC per key,
+    so (c)'s `has(tag)` over the level-3 frontier takes about as many
+    RPCs as the pool has nodes; a query's budget is 600 s (past it the
+    cluster answers in part) and its retry budget 4,096 re-issues (a
+    read slower than 150 ms fires a hedge, which spends one; the default
+    16 is sized for queries of a few hundred reads)."""
+    import os
+    import threading
+
+    import torch
+
+    from dgraph_tpu_torch.conn import faults
+    from dgraph_tpu_torch.ops import member_sweep, vector_topk
+    from dgraph_tpu_torch.query import dispatch
+    from dgraph_tpu_torch.utils.observe import METRICS
+    from dgraph_tpu_torch.worker.groups import DistributedCluster
+    from dgraph_tpu_torch.worker.harness import ProcCluster
+    from dgraph_tpu_torch.worker.remote import RemoteGroup
+
+    on_card = torch.device(device).type == "cuda"
+
+    def sweeps():
+        return member_sweep.LAUNCHES if on_card else member_sweep.PLAIN_CALLS
+
+    def topks():
+        return vector_topk.LAUNCHES if on_card else vector_topk.PLAIN_CALLS
+
+    def open_cluster():
+        t0 = time.perf_counter()
+        c = ProcCluster(device=device, n_groups=2, replicas=3,
+                        data_dir=os.path.join(workdir, "proc"))
+        return c, time.perf_counter() - t0
+
+    g = make_graph(fanout, pool, roots=roots)
+    hot = set(g["hot"].tolist())
+
+    def ask(c, q, read_ts=None):
+        got = c.query(q, want="raw", read_ts=read_ts)
+        ext = got.get("extensions", {})
+        if ext.get("partial"):  # "leaderless" alone is a whole answer
+            raise AssertionError(f"a partial answer: {ext.get('unreachable_groups')}")
+        return got["data"].raw
+
+    def read_all(c, hot, full=True, read_ts=None):
+        """(a)-(d), each equal to numpy; with `full`, once on the host
+        path, which must answer the same bytes, and (but (c), whose
+        `has(tag)` takes an RPC per candidate) once more warm."""
+        answers, res = {}, {}
+        for name, q in QUERIES.items():
+            c0 = sweeps()
+            with _RpcCount(c.pool) as rpc:
+                t = time.perf_counter()
+                answers[name] = ask(c, q, read_ts)
+                res[name] = {"cold_ms": (time.perf_counter() - t) * 1e3}
+            res[name].update(rpcs=rpc.n, k1=sweeps() - c0, bytes=len(answers[name]))
+            if full and name != "c":
+                t = time.perf_counter()
+                if ask(c, q, read_ts) != answers[name]:
+                    raise AssertionError(f"query {name}: device path not stable")
+                res[name]["warm_ms"] = (time.perf_counter() - t) * 1e3
+            if full:
+                with forced_device(False):
+                    if ask(c, q, read_ts) != answers[name]:
+                        raise AssertionError(f"query {name}: device path != host path")
+            want = expected(g, "a" if name == "a" else "b", hot)
+            if extract(name, json.loads(answers[name])) != want:
+                raise AssertionError(f"query {name}: != numpy reference")
+        if res["b"]["k1"] < 1:
+            raise AssertionError("K1 did not launch during (b)")
+        return answers, res
+
+    out = {}
+    # Two stores in one process can meet the same (key, latest_ts) with
+    # other contents, and the card's operand cache then hands the second
+    # the first one's operand (ROADMAP Queue 3): the Servers of phases
+    # 4-10 ran in this process, so their entries go before the clusters'.
+    dispatch.DISPATCHER.device_cache.clear()
+    with forced_device(), knobs(GROUP_COMMIT=1, BATCH_APPLY=0, MOVE_CHUNK_BYTES=1 << 18,
+                                QUERY_DEADLINE_S=600, READ_RETRY_BUDGET=4096), \
+            _Capture(member_sweep) as cap, _VecCapture() as vcap:
+        member_sweep.LAUNCHES = member_sweep.PLAIN_CALLS = 0
+        vector_topk.LAUNCHES = vector_topk.PLAIN_CALLS = 0
+        c = dc = None
+        try:
+            # (11a) load and read
+            c, start_s = open_cluster()
+            c.alter(CLUSTER_SCHEMA)
+            where = {p: c.zero.belongs_to(p) for p in ("child", "tag")}
+            if where["child"] == where["tag"]:
+                c.move_tablet("tag", next(x for x in c.remote_groups if x != where["tag"]))
+                where["tag"] = c.zero.belongs_to("tag")
+            t0 = time.perf_counter()
+            edges = commits = 0
+            for text in nquad_chunks(g, chunk, CLUSTER_TAG_CHUNK):
+                c.new_txn().mutate_rdf(set_rdf=text, commit_now=True)
+                edges += text.count("\n") + 1
+                commits += 1
+                if commits % 25 == 0:
+                    log(f"(11a) {edges} N-Quads in {commits} commits, "
+                        f"{time.perf_counter() - t0:.3f}s")
+            load_s = time.perf_counter() - t0
+            out["load"] = {"start_s": start_s, "edges": edges, "commits": commits,
+                           "s": load_s, "edges_per_s": edges / load_s, "tablets": where}
+            out["card_apps"] = check_replicas_off_card(c, on_card)
+            log(f"(11a) {len(c.procs)} replica processes (2 groups x 3) up in "
+                f"{start_s:.3f}s; child on group {where['child']}, tag on group "
+                f"{where['tag']}; {edges} N-Quads in {commits} cluster commits, "
+                f"{load_s:.3f}s, {edges / load_s:.1f} edges/s; no replica holds a CUDA "
+                f"context (nvidia-smi lists {out['card_apps']})")
+            answers, out["reads"] = read_all(c, hot)
+            # (b)-(d) ask for the same fields of the same hot rows
+            if not answers["b"] == answers["c"] == answers["d"]:
+                raise AssertionError("(11a): (b), (c) and (d) answer other bytes")
+            log(f"(11a) (a)-(d) equal to the host path and numpy, (b)-(d) the same bytes; ms, "
+                f"RPCs, K1: " + json.dumps(out["reads"]))
+
+            # (11b) the leader of tag's group dies under a commit
+            gid = c.zero.belongs_to("tag")
+            grp = c.remote_groups[gid]
+            lead = tuple(grp.leader_addr())
+            victim = next(n for n, cfg in c._cfgs.items() if cfg.get("group_id") == gid
+                          and tuple(cfg["rpc_addr"]) == lead)
+            flips = np.random.default_rng(11).choice(g["pool"], n_flips, replace=False)
+            hot ^= set(flips.tolist())
+            rdf = "\n".join(f'<{hex(u)}> <tag> "{"hot" if u in hot else "cold"}" .'
+                            for u in flips.tolist())
+            t0 = time.perf_counter()
+            c.kill(victim)
+            c.new_txn().mutate_rdf(set_rdf=rdf, commit_now=True)
+            gap_s = time.perf_counter() - t0
+            flipped_b = ask(c, QUERIES["b"])
+            if extract("b", json.loads(flipped_b)) != expected(g, "b", hot):
+                raise AssertionError("(11b): (b) after the flip != numpy")
+            floor = grp.read_floor()
+            addr = tuple(c._cfgs[victim]["rpc_addr"])
+            t0 = time.perf_counter()
+            c.restart(victim)
+            while True:
+                try:
+                    if int(c.pool.call(addr, "health", timeout=1.0).applied) >= floor:
+                        break
+                except Exception:  # noqa: BLE001 - still starting
+                    pass
+                if time.perf_counter() - t0 > 300:
+                    raise AssertionError("(11b): the restarted replica never caught up")
+                time.sleep(0.05)
+            catch_up_s = time.perf_counter() - t0
+            # (b) with tag's group narrowed to the victim alone: every tag
+            # read it answers is a follower read at the watermark
+            solo = RemoteGroup(gid, [addr], c.pool)
+            solo.note_floor(floor)
+            c.remote_groups[gid] = solo
+            try:
+                f0 = METRICS.value("follower_reads_total")
+                via_victim = ask(c, QUERIES["b"])
+                follower = METRICS.value("follower_reads_total") - f0
+            finally:
+                c.remote_groups[gid] = grp
+            if via_victim != flipped_b or follower < 1:
+                raise AssertionError(f"(11b): the victim's (b) differs or was not a follower "
+                                     f"read ({follower})")
+            out["fault"] = {"victim": victim, "gap_s": gap_s, "floor": floor,
+                            "catch_up_s": catch_up_s, "follower_reads": follower}
+            log(f"(11b) killed replica {victim}, leader of group {gid}: the flip of "
+                f"{n_flips} tags committed {gap_s:.3f}s after the kill, (b) equal to "
+                f"numpy; restarted, applied past index {floor} in {catch_up_s:.3f}s, and "
+                f"answered (b) alone by {follower} follower reads, equal")
+
+            # (11c) tag moves to the other group under reads of (b): the
+            # readers ask back to back, and the move's last step before
+            # the flip (the `move.delta` syncpoint, fence held) waits for
+            # a read in flight, so that one read straddles the flip
+            dst = next(x for x in c.remote_groups if x != gid)
+            stop, seen, errors = threading.Event(), [], []
+            in_flight, marks = {}, {}
+            real_syncpoint = faults.syncpoint
+
+            def syncpoint(point, peer="coordinator"):
+                if point == "move.delta":
+                    t = time.perf_counter()
+                    while not in_flight and not errors and time.perf_counter() - t < 120:
+                        time.sleep(0.001)
+                marks[point] = time.perf_counter()
+                return real_syncpoint(point, peer)
+
+            def reader():
+                me = threading.get_ident()
+                try:
+                    while not stop.is_set():
+                        t = in_flight[me] = time.perf_counter()
+                        got = ask(c, QUERIES["b"])
+                        seen.append((t, time.perf_counter(), got == flipped_b))
+                        del in_flight[me]
+                except BaseException as e:  # noqa: BLE001 - re-raised below
+                    errors.append(e)
+
+            ths = [threading.Thread(target=reader) for _ in range(2)]
+            for th in ths:
+                th.start()
+            faults.syncpoint = syncpoint
+            t0 = time.perf_counter()
+            try:
+                moved = c.move_tablet("tag", dst)
+                move_s = time.perf_counter() - t0
+            finally:
+                faults.syncpoint = real_syncpoint
+                stop.set()
+                for th in ths:
+                    th.join(timeout=900)
+            if errors:
+                raise errors[0]
+            if c.zero.belongs_to("tag") != dst or not moved:
+                raise AssertionError("(11c): tag did not move")
+            if not seen or not all(ok for _, _, ok in seen):
+                raise AssertionError(f"(11c): {sum(not ok for _, _, ok in seen)} of {len(seen)} "
+                                     "reads during the move differ")
+            flip = (marks["move.delta"], marks["move.flip"])
+            when = {"before": sum(e < flip[0] for _, e, _ in seen),
+                    "straddling": sum(s < flip[0] and e > flip[1] for s, e, _ in seen),
+                    "after": sum(s > flip[1] for s, _, _ in seen)}
+            if not when["straddling"]:
+                raise AssertionError(f"(11c): no read straddled the flip: {when}")
+            c0 = sweeps()
+            if ask(c, QUERIES["b"]) != flipped_b or sweeps() == c0:
+                raise AssertionError("(11c): (b) after the move differs or K1 did not launch")
+            out["move"] = {"s": move_s, "reads": len(seen), "k1_after": sweeps() - c0,
+                           "read_ms": [(e - s) * 1e3 for s, e, _ in seen], "dst": dst,
+                           "reads_by_flip": when,
+                           "phases_s": {p: t - t0 for p, t in sorted(marks.items(),
+                                                                      key=lambda x: x[1])}}
+            log(f"(11c) tag moved to group {dst} in {move_s:.3f}s under {len(seen)} reads of "
+                f"(b) from 2 threads, all equal ({when['before']} ended before "
+                f"the flip, {when['straddling']} straddled it, {when['after']} began after); "
+                f"after it (b) equal, K1 {sweeps() - c0} launches")
+
+            # (11d) full restart. The coordinator's Zero keeps its
+            # timestamps in memory, so a new one starts again at 1 (in
+            # the reference too, ROADMAP Queue 3): the client reads at the
+            # last snapshot it saw before the close
+            seen_ts = c._snapshot_ts
+            c.close()
+            c = None
+            left = cluster_children()
+            if left:
+                raise AssertionError(f"(11d): processes outlived close(): {left}")
+            c, recover_s = open_cluster()
+            c.alter(CLUSTER_SCHEMA)
+            out["card_apps_after_restart"] = check_replicas_off_card(c, on_card)
+            t0 = time.perf_counter()
+            again, out["reads_after_restart"] = read_all(c, hot, full=False,
+                                                          read_ts=seen_ts)
+            first_reads_s = time.perf_counter() - t0
+            before = {"a": answers["a"], "b": flipped_b, "c": flipped_b, "d": flipped_b}
+            if again != before or c.zero.belongs_to("tag") != dst:
+                raise AssertionError("(11d): (a)-(d) after the restart differ, or tag left "
+                                     f"group {dst}")
+            out["restart"] = {"recover_s": recover_s, "first_reads_s": first_reads_s}
+            log(f"(11d) closed; a new cluster on the same directory served in "
+                f"{recover_s:.3f}s; (a)-(d) byte for byte as before, flips and move "
+                f"included, in {first_reads_s:.3f}s")
+            c.close()
+            c = None
+            if cluster_children():
+                raise AssertionError(f"processes outlived close(): {cluster_children()}")
+
+            # (11e) vectors on an in-process cluster
+            # through RDF: `ClusterFacade`'s JSON mutations raise in both
+            # packages (ROADMAP Queue 3)
+            dc = DistributedCluster(device=device, n_groups=2, replicas=3,
+                                    replicated_zero=True)
+            vec_base = int(g["pool"].max()) + 1
+            dc.alter(SMALL_SCHEMA)
+            t0 = time.perf_counter()
+            for s in range(0, len(V), vec_chunk):
+                dc.new_txn().mutate_rdf(
+                    set_rdf=_vector_lines((V[s : s + vec_chunk], vec_base + s, "emb_small")),
+                    commit_now=True)
+            vec_s = time.perf_counter() - t0
+            if len(dc.vector_indexes["emb_small"]) != len(V):
+                raise AssertionError("(11e): emb_small does not hold every committed vector")
+            c0 = topks()
+            vq = [f'{{ q(func: similar_to(emb_small, {k}, "{_vec_text(q)}")) {{ uid }} }}'
+                  for q in Q[:n_reads]]
+            t0 = time.perf_counter()
+            rows = [np.sort([int(o["uid"], 16) - vec_base for o in dc.query(q)["data"]["q"]])
+                    for q in vq]
+            read_s = time.perf_counter() - t0
+            launched = topks() - c0
+            _, ex_d = exact_topk(V, Q[:n_reads], k)
+            if not near_equal(V, Q[:n_reads], rows, ex_d):
+                raise AssertionError("(11e): similar_to != exact top-k beyond near-ties")
+            if launched < n_reads:
+                raise AssertionError(f"(11e): KV1 {launched} launches in {n_reads} reads")
+            out["vectors"] = {"rows": len(V), "s": vec_s, "per_s": len(V) / vec_s,
+                              "reads": n_reads, "read_ms": read_s * 1e3 / n_reads,
+                              "kv1": launched}
+            log(f"(11e) {len(V)} x {V.shape[1]} vectors through {-(-len(V) // vec_chunk)} "
+                f"cluster RDF commits in {vec_s:.3f}s ({len(V) / vec_s:.1f}/s); {n_reads} "
+                f"similar_to reads equal to the exact top-k, {read_s * 1e3 / n_reads:.3f} "
+                f"ms each, KV1 {launched} launches")
+        finally:
+            if dc is not None:
+                dc.close()
+            if c is not None:
+                c.close()
+        out["launches"] = {"member_sweep": sweeps(), "vector_topk": topks()}
+        out["sweep_shapes"] = cap.by_shape
+        out["captured"] = (vcap.topk, vcap.slabs)
+    left = cluster_children()
+    if left:
+        raise AssertionError(f"processes outlived phase 11: {left}")
+    return out
+
+
+def cluster_phase(V, Q, card, t_start, full=False):
+    """Phase 11 in a temporary directory (on the full graph with `full`,
+    else on CLUSTER_CUT), then K1 against its plain version at every
+    shape it took and KV1 at every site; prints as it goes. Returns the
+    measurements."""
+    import tempfile
+
+    print("[11] the cluster on the card: 2 groups x 3 replica processes, "
+          "predicate-sharded reads with K1 on this process's card, a leader "
+          "killed, a tablet moved, a full restart; vectors on an in-process cluster; "
+          f"the graph {'in full' if full else CLUSTER_CUT}; at " + card, flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cluster_") as d:
+        cl = serve_cluster("cuda", d, V, Q, **({} if full else CLUSTER_CUT),
+                           log=lambda m: print("    " + m, flush=True))
+    if min(cl["launches"].values()) < 1:
+        raise AssertionError(f"(11) a kernel did not launch: {cl['launches']}")
+    bad = {k: n for k, n in sweep_shapes_equal(cl["sweep_shapes"]).items() if n}
+    if bad:
+        raise AssertionError(f"(11) K1 != plain at shapes (n, pa, pb): {bad}")
+    print(f"    K1 launches {cl['launches']['member_sweep']}, equal to plain at every shape "
+          f"(n, pa, pb) it took: {sorted(cl.pop('sweep_shapes'))}", flush=True)
+    served11 = served_kernels(cl.pop("captured"))
+    for site, r in served11.items():
+        print(f"    {site} (phase 11 inputs): equal to plain; {_fmt(r)}", flush=True)
+    print("    [11] " + json.dumps(cl), flush=True)
+    print(f"    total {time.perf_counter() - t_start:.3f}s", flush=True)
+    return cl
 
 
 def card_line() -> str:
@@ -2892,6 +3423,9 @@ def main(argv=None) -> int:
                          "and stop")
     ap.add_argument("--ops-only", action="store_true",
                     help="after the build, run phase 10 alone (on rows made anew), and stop")
+    ap.add_argument("--cluster-only", action="store_true",
+                    help="after the build, run phase 11 alone on the full graph (on rows "
+                         "made anew), and stop")
     opts = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2917,6 +3451,10 @@ def main(argv=None) -> int:
     if opts.ops_only:
         V, Q = make_corpus()
         data_in_and_out(V[:100_000].copy(), Q, None, card, t_start)
+        return 0
+    if opts.cluster_only:
+        V, Q = make_corpus()
+        cluster_phase(V[:CLUSTER_VECTORS].copy(), Q, card, t_start, full=True)
         return 0
 
     print("[3] member sweep vs plain (exact), times in ms at " + card, flush=True)
@@ -2944,9 +3482,7 @@ def main(argv=None) -> int:
     if main["mismatches"]:
         raise AssertionError(f"main-path inputs: kernel != plain: {main}")
     print(f"    n={A.shape[0]} pa={A.shape[1]} pb={B.shape[1]}: rows sorted as "
-          f"uint32; equal; kernel {main['ms']:.6f} (device {main['device_ms']:.6f}) "
-          f"plain {main['plain_ms']:.6f} library {main['library_ms']:.6f} "
-          f"bound {main['bound_ms']:.6f} ({main['bound_by']}); all-of-B byte time "
+          f"uint32; equal; {_fmt(main)}; all-of-B byte time "
           f"{all_of_b_ms(A, LA, B, LB):.6f}; rows {main['regimes']}", flush=True)
     del s["captured"], A, LA, B, LB
     print(f"    total {time.perf_counter() - t_start:.3f}s", flush=True)
@@ -2955,8 +3491,10 @@ def main(argv=None) -> int:
           "ms at " + card, flush=True)
     vector_grid()
     print(f"    total {time.perf_counter() - t_start:.3f}s; traces that came back "
-          f"short (kernel, calls traced, calls made): {TRACE_SHORT}", flush=True)
+          f"short (kernel, calls traced, calls made, lost launches): {TRACE_SHORT}",
+          flush=True)
 
+    n_short6 = len(TRACE_SHORT)
     print("[7] serving similar_to over 1000000 x 768 float32 on the card", flush=True)
     v = serve_vectors("cuda", log=lambda m: print("    " + m, flush=True),
                       profile=tuple(c for c in opts.profile if c in "efghi"), keep=True)
@@ -2983,11 +3521,14 @@ def main(argv=None) -> int:
         config.set_env("STORAGE", arm)
         try:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
-                print(f"    [{arm}] DGRAPH_TPU_STORAGE={arm}, data_dir {d}, {len(small_V)} "
+                # (u1) and (u3) at half their default depth, and the lsm
+                # arm with a quarter of the vectors (its 16 reads after the
+                # restart as on the WAL store), to leave phases 10 and 11
+                # room within the limit
+                arm_V = small_V if arm == "mem" else small_V[:LSM_VECTORS]
+                print(f"    [{arm}] DGRAPH_TPU_STORAGE={arm}, data_dir {d}, {len(arm_V)} "
                       "vectors", flush=True)
-                # (u1) and (u3) at half their default depth, to leave
-                # phase 10 room within the time limit
-                writes[arm] = serve_writes("cuda", d, small_V, all_Q, upserts_per_thread=250,
+                writes[arm] = serve_writes("cuda", d, arm_V, all_Q, upserts_per_thread=250,
                                            transfers_per_thread=125,
                                            log=lambda m: print("      " + m, flush=True))
         finally:
@@ -3012,7 +3553,8 @@ def main(argv=None) -> int:
         raise AssertionError(f"(9) K1 != plain at shapes (n, pa, pb): {bad}")
     print(f"    K1 launches {front['graph']['sweeps']}, equal to plain at every shape "
           f"(n, pa, pb) it took: {sorted(front['graph'].pop('sweep_shapes'))}", flush=True)
-    front["vectors"] = front_vectors(v.pop("server"), all_Q, named=v["named"],
+    # (9a) at 32 reads a client (64 before phase 11), for the time limit
+    front["vectors"] = front_vectors(v.pop("server"), all_Q, named=v["named"], per_client=32,
                                      log=lambda m: print("    " + m, flush=True))
     launches9 = front["vectors"]["launches"]
     if min(launches9.values()) < 1:
@@ -3025,7 +3567,12 @@ def main(argv=None) -> int:
     print(f"    total {time.perf_counter() - t_start:.3f}s", flush=True)
 
     ops = data_in_and_out(small_V, all_Q, writes["mem"]["load"]["per_s"], card, t_start)
+    cl = cluster_phase(small_V[:CLUSTER_VECTORS].copy(), all_Q, card, t_start)
     del small_V, all_Q
+
+    print(f"    traces short after phase 6 (kernel, calls traced, calls made, lost "
+          f"launches): {TRACE_SHORT[n_short6:]}; traces without the kernel (kernels, "
+          f"calls, lost launches): {TRACE_EMPTY}", flush=True)
 
     # the kernels' rows: each at the served shape that moves most bytes
     def heaviest(prefix):
@@ -3036,7 +3583,8 @@ def main(argv=None) -> int:
         f"8 {arm} {step}": n for arm, w in writes.items() for step, n in (
             ("u2", w["u2"]["sweeps"]),
             ("restart", w["after_restart_launches"]["member_sweep"]))},
-        "9": front["graph"]["sweeps"], "10": ops["launches"]["member_sweep"]}
+        "9": front["graph"]["sweeps"], "10": ops["launches"]["member_sweep"],
+        "11": cl["launches"]["member_sweep"]}
     rows = [{
         "name": "member_sweep",
         "route": "cuda",
@@ -3061,8 +3609,9 @@ def main(argv=None) -> int:
             by_path.update({f"8 {arm} restart": w["after_restart_launches"]["vector_topk"]
                             for arm, w in writes.items()})
         by_path["9"] = launches9[name]
-        if name in ops["launches"]:
-            by_path["10"] = ops["launches"][name]
+        for phase, got in (("10", ops["launches"]), ("11", cl["launches"])):
+            if name in got:
+                by_path[phase] = got[name]
         rows.append({
             "name": name, "route": "cuda", "source": f"dgraph_tpu_torch/csrc/{src}",
             "replaces": ref, "launches": sum(by_path.values()), "launches_by_path": by_path,

@@ -1,0 +1,1 @@
+from dgraph_tpu_torch.worker.groups import DistributedCluster, ZeroService

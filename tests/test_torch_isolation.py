@@ -14,7 +14,12 @@
   authorised query answers as it did with ACL off; last, on a new
   Server, a subscription fires on a commit, a CDC file sink holds the
   commit's event, a backup restores into another Server that answers as
-  the first, and `bulk_load_rdf` loads N-Quads that a query reads back.
+  the first, and `bulk_load_rdf` loads N-Quads that a query reads back;
+  then a mutation over both groups of a `DistributedCluster` (2 x 3),
+  applied in predicate shards, and one through a `ProcCluster` (2 x 3)
+  answer a query. A `sitecustomize.py` on `PYTHONPATH` installs the same
+  blocker in the cluster's replica processes, each of which must run a
+  `dgraph_tpu_torch` module.
 - Every module the port copied from the reference equals it but for the
   rebinding of `dgraph_tpu` to `dgraph_tpu_torch` and for citations of
   the upstream Go sources, written `dgraph/<path>` in the port; the
@@ -47,8 +52,6 @@ PORTED = {
     "ops/setops.py",
     "ops/vector_topk.py",
     "query/dispatch.py",
-    # package inits that do not re-export modules the slice leaves out
-    "worker/__init__.py",
 }
 # copies with a repair: (module, top-level function or Class.method)
 REPAIRED = {
@@ -64,6 +67,10 @@ REPAIRED = {
         "VectorIndex._ivf_search", "VectorIndex._ivf_search_batch",
     ],
     "query/subgraph.py": ["Executor._order_uids_topk"],  # jax.lax.top_k -> torch
+    # the cluster entry points take the coordinator's device, as Server
+    # does, and build their vector indexes on it
+    "worker/groups.py": ["DistributedCluster.__init__", "DistributedCluster.alter"],
+    "worker/harness.py": ["ProcCluster.__init__"],
 }
 
 
@@ -196,19 +203,70 @@ print(json.dumps([[f["data"] for f in fired],
                   [(e["operation"], e["uid"], e["attr"], e["value"]) for e in events],
                   r.query('{ q(func: eq(name, "e")) { uid name } }')["data"],
                   b.query('{ q(func: has(name)) { uid name } }')["data"]]))
+import os
+os.environ["DGRAPH_TPU_BATCH_APPLY"] = "0"  # edges take the Python apply,
+os.environ["DGRAPH_TPU_APPLY_SHARDS"] = "2"  # split over two shards
+from dgraph_tpu_torch.posting import mutation
+from dgraph_tpu_torch.worker.groups import DistributedCluster
+from dgraph_tpu_torch.worker.harness import ProcCluster
+sharded = []
+_apply = mutation._apply_edges_sharded
+mutation._apply_edges_sharded = lambda *a: sharded.append(len(a[2])) or _apply(*a)
+schema = "name: string @index(exact) .\nfriend: [uid] ."
+rdf = '<0x1> <name> "a" .\n<0x1> <friend> <0x2> .\n<0x2> <name> "b" .'
+q1 = '{ q(func: eq(name, "a")) { name friend { name } } }'
+dc = DistributedCluster(device="cpu", n_groups=2, replicas=3)
+dc.alter(schema)
+dc.new_txn().mutate_rdf(set_rdf=rdf, commit_now=True)
+tablets = sorted(set(dc.zero.tablets.values()))
+dist = dc.query(q1)["data"]
+dc.close()
+d = tempfile.mkdtemp()
+pc = ProcCluster(device="cpu", n_groups=2, replicas=3, data_dir=d)
+try:
+    pc.alter(schema)
+    pc.new_txn().mutate_rdf(set_rdf=rdf, commit_now=True)
+    proc = pc.query(q1)["data"]
+    children = []
+    for p in pc.procs.values():
+        cmd = open(f"/proc/{p.pid}/cmdline").read().split("\0")
+        env = dict(
+            kv.split("=", 1) for kv in open(f"/proc/{p.pid}/environ").read().split("\0")
+            if "=" in kv
+        )
+        children.append([cmd[cmd.index("-m") + 1], env.get("PYTHONPATH", "")])
+finally:
+    pc.close()
+shutil.rmtree(d)
+print(json.dumps([sharded, tablets, dist, proc, children]))
 print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "dgraph_tpu")))
 """
 
+# installed in every interpreter that finds it on PYTHONPATH, so in the
+# cluster's replica processes too (`_spawn` keeps the caller's PYTHONPATH)
+_SITECUSTOMIZE = r"""
+import sys
 
-def test_runs_with_jax_and_reference_blocked():
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "dgraph_tpu"):
+            raise ImportError("blocked: " + name)
+
+sys.meta_path.insert(0, Block())
+"""
+
+
+def test_runs_with_jax_and_reference_blocked(tmp_path):
+    (tmp_path / "sitecustomize.py").write_text(_SITECUSTOMIZE)
     env = dict(os.environ)
-    env.pop("PYTHONPATH", None)
+    env["PYTHONPATH"] = str(tmp_path)
     got = subprocess.run(
         [sys.executable, "-c", _BLOCKED_RUN],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
     )
     assert got.returncode == 0, got.stderr[-3000:]
-    data, similar, restart, front, ops, mods = got.stdout.strip().splitlines()[-6:]
+    lines = got.stdout.strip().splitlines()[-7:]
+    data, similar, restart, front, ops, cluster, mods = lines
     assert json.loads(data) == {
         "q": [{"friend": [{"uid": "0x3"}, {"uid": "0x100000004"}]}]
     }
@@ -231,6 +289,15 @@ def test_runs_with_jax_and_reference_blocked():
     assert events == [["set", 5, "name", "e"]]
     assert restored == {"q": [{"uid": "0x5", "name": "e"}]}
     assert bulk == {"q": [{"uid": "0x7", "name": "f"}]}
+    sharded, tablets, dist, proc, children = json.loads(cluster)
+    # each cluster's coordinator applied the mutation's 3 edges in shards
+    assert sharded == [3, 3]
+    assert tablets == [1, 2]
+    assert dist == proc == {"q": [{"name": "a", "friend": [{"name": "b"}]}]}
+    assert len(children) == 6
+    for module, pythonpath in children:
+        assert module == "dgraph_tpu_torch.worker.alpha_process"
+        assert str(tmp_path) in pythonpath.split(os.pathsep)
     assert mods == "[]"
 
 
