@@ -125,7 +125,26 @@ Phases, each of which fails the run when it fails:
      through cluster transactions and answers 16 `similar_to` reads
      equal to the exact top-k (KV1 must launch). K1 and KV1 are held
      against their plain versions at every shape and site phase 11 gave
-     them.
+     them;
+ 12. GraphQL over the port's HTTP front (`serve_graphql`), between phases
+     9 and 10, on phase 4's and phase 7's servers, each behind an
+     `HTTPServer` on localhost and asked through the port's `client.py`,
+     on the forced device path: (12a) `dgraph.type` "Node" on the graph's
+     210,101 nodes through `/mutate`, then an SDL mapping `Node` and `Doc`
+     onto the existing predicates through `/admin/schema/graphql`, which
+     must rebuild no index; (12b) query (b) as `queryNode` and `getNode`,
+     equal to numpy and to (b) as DQL over the same front (K1 must
+     launch; its dispatcher entry is reported); (12c) `aggregateNode` of
+     the hot nodes and a page of 10; (12d) 16 `querySimilarDocByEmbedding`
+     reads on `emb_small` (brute, KV1: the exact top-k outside near-ties)
+     and on `emb` (IVF, KV2 and KV1: recall@10 at least 0.90), with
+     `vector_distance` (the float64 distance where the store holds the
+     row's vector, null elsewhere), and one `querySimilarDocById`; (12e) 5
+     tag flips by `updateNode` alone, then 5 under a graphql-transport-ws
+     subscription to (b) over a websocket (every push and every (b)
+     after a flip equal to numpy), then a commit that changes no answer
+     (no push). K1, KV1 and KV2 are held against their plain versions at
+     every shape and site phase 12 gave them.
 
 `--profile` adds, for the named queries (a-d of phase 4, e-i of phase
 7), where one warm run's time goes: host functions by own time
@@ -133,7 +152,9 @@ Phases, each of which fails the run when it fails:
 runs phases 1-2 and then, in place of the others, measures where KV1's
 radix regime starts to beat its one-pass regime (`topk_crossover`);
 `--ops-only` runs phases 1-2 and then phase 10 alone, on rows made
-anew; `--cluster-only` likewise phase 11, on the full graph.
+anew; `--cluster-only` likewise phase 11, on the full graph;
+`--graphql-only` likewise phase 12, on the graph bulk-loaded through the
+native loader and phase 7's vectors in Servers of its own.
 
 The second-to-last lines are the kernel table (JSON) and the card; the
 last line is `{"ok": true, "device": {...}}`. Without a CUDA card the
@@ -315,7 +336,8 @@ def profile_query(server, q, log=print, top=12, reps=5):
     """Where one warm query's time goes: the host functions by own time
     (cProfile), and the card's busy share (torch.profiler: the sum of
     device kernel and copy time over the query's wall time, over `reps`
-    calls). `q` is a DQL string, or a callable that runs the work."""
+    calls). `q` is a DQL string, or a callable that runs the work.
+    Returns the card's busy and wall ms a call and its idle share."""
     import cProfile
     import io
     import pstats
@@ -358,6 +380,7 @@ def profile_query(server, q, log=print, top=12, reps=5):
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"      {e.self_device_time_total / 1e3 / reps:10.3f} ms  x{e.count / reps:<5g} "
             f"{e.key[:90]}")
+    return {"busy_ms": busy_ms, "wall_ms": wall_ms, "idle_share": 1 - busy_ms / wall_ms}
 
 
 def serve(device="cuda", fanout=100, pool=200_000, reps=3, log=print, profile=(),
@@ -1172,29 +1195,18 @@ class _VecCapture:
         self.mods[0].topk, self.mods[1].slab_distances = self.real
 
 
-def serve_vectors(device="cuda", n=1_000_000, d=768, n_named=10_000, n_small=100_000,
-                  nq=64, k=10, reps=3, min_recall=0.90, ivf_threshold=None,
-                  n_allow=20, log=print, profile=(), keep=False):
-    """Phase 7: load the corpus into a port Server on `device`, serve the
-    five vector reads, check them (exact top-k, recall, the CPU float
-    path, the kernels' launches) and time them. Returns the measurements,
-    the kernel counts of the counted run and the captured kernel inputs,
-    and with `keep` the server (phase 9 serves it again).
-    `ivf_threshold` overrides the index's (a rehearsal at a small n).
-    Read (i) filters `emb_small` to the `n_allow` uids farthest from the
-    query, so its pool widens 4x a step up to the whole live set."""
-    import os
-
-    import torch
-
+def load_vectors(device="cuda", n=1_000_000, d=768, n_named=10_000, n_small=100_000,
+                 ivf_threshold=None, log=print):
+    """Phase 7's corpus in a port Server on `device`: all n rows into
+    `emb`'s index, the first n - n_named bulk-loaded into the index alone
+    and the last n_named committed as RDF with a `name` (so only those
+    are in the store too), and the first n_small into `emb_small`'s index
+    alone. Returns (server, V, Qs, the load's seconds)."""
     from dgraph_tpu_torch.api.server import Server
-    from dgraph_tpu_torch.ops import ivf_scan, vector_topk
 
-    on_card = torch.device(device).type == "cuda"
     t0 = time.perf_counter()
     V, Qs = make_corpus(n, d)
-    Q = Qs[:nq]
-    log(f"corpus: {n} x {d} float32 (256 gaussians, default_rng(1)) and {nq} queries "
+    log(f"corpus: {n} x {d} float32 (256 gaussians, default_rng(1)) and {len(Qs)} queries "
         f"made in {time.perf_counter() - t0:.3f}s")
     server = Server(device=device)
     server.slow_query_ms = float("inf")
@@ -1217,6 +1229,30 @@ def serve_vectors(device="cuda", n=1_000_000, d=768, n_named=10_000, n_small=100
         raise AssertionError(f"index sizes {len(emb)}, {len(small)}")
     log(f"loaded in {load_s:.3f}s: {n - n_named} bulk + {n_named} committed as RDF "
         f"into emb, {n_small} into emb_small")
+    return server, V, Qs, load_s
+
+
+def serve_vectors(device="cuda", n=1_000_000, d=768, n_named=10_000, n_small=100_000,
+                  nq=64, k=10, reps=3, min_recall=0.90, ivf_threshold=None,
+                  n_allow=20, log=print, profile=(), keep=False):
+    """Phase 7: load the corpus into a port Server on `device`, serve the
+    five vector reads, check them (exact top-k, recall, the CPU float
+    path, the kernels' launches) and time them. Returns the measurements,
+    the kernel counts of the counted run and the captured kernel inputs,
+    and with `keep` the server (phase 9 serves it again).
+    `ivf_threshold` overrides the index's (a rehearsal at a small n).
+    Read (i) filters `emb_small` to the `n_allow` uids farthest from the
+    query, so its pool widens 4x a step up to the whole live set."""
+    import os
+
+    import torch
+
+    from dgraph_tpu_torch.ops import ivf_scan, vector_topk
+
+    on_card = torch.device(device).type == "cuda"
+    server, V, Qs, load_s = load_vectors(device, n, d, n_named, n_small, ivf_threshold, log=log)
+    Q = Qs[:nq]
+    emb, small = server.vector_indexes["emb"], server.vector_indexes["emb_small"]
 
     qtext = [_vec_text(q) for q in Q[:4]]
     # (i): the allow-list lies far from query 0, so no pool short of the
@@ -1383,7 +1419,8 @@ def serve_vectors(device="cuda", n=1_000_000, d=768, n_named=10_000, n_small=100
         profile_query(server, runs[name], log=lambda m: log("  " + m))
     out["small"] = (V[:n_small].copy(), Qs)  # phase 8 commits these rows
     if keep:
-        out["server"], out["named"] = server, n  # uid n has a name
+        # uid n has a name; phase 12 reuses the exact top-k of Q
+        out["server"], out["named"], out["exact"] = server, n, (ex_i, ex_d)
     return out
 
 
@@ -3402,6 +3439,504 @@ def cluster_phase(V, Q, card, t_start, full=False):
     return cl
 
 
+# ---------------------------------------------------------------------------
+# GraphQL over the HTTP front (phase 12)
+# ---------------------------------------------------------------------------
+
+# the SDL phase 12 uploads, mapped onto the predicates of phases 4 and 7
+GRAPHQL_SDL = (
+    'type Node { id: ID! child: [Node] @dgraph(pred: "child") '
+    'tag: String @search(by: [exact]) @dgraph(pred: "tag") }\n'
+    'type Doc { id: ID! name: String @search(by: [exact]) @dgraph(pred: "name")\n'
+    '  emb: [Float!] @embedding @search(by: ["hnsw(metric: euclidean)"]) @dgraph(pred: "emb")\n'
+    '  emb_small: [Float!] @embedding @search(by: ["hnsw(metric: euclidean)"]) '
+    '@dgraph(pred: "emb_small") }\n')
+# query (b) in GraphQL: the level-2 ids and their hot children
+LEVELS_B = 'child { child { id child(filter: {tag: {eq: "hot"}}) { id } } }'
+GQL_B = 'query { queryNode(filter: {id: ["0x1"]}) { %s } }' % LEVELS_B
+GQL_GET_B = 'query { getNode(id: "0x1") { %s } }' % LEVELS_B
+SUB_B = 'subscription { queryNode(filter: {id: ["0x1"]}) { %s } }' % LEVELS_B
+GQL_FLIP = ('mutation { updateNode(input: {filter: {id: ["%s"]}, set: {tag: "hot"}}) '
+            '{ numUids } }')
+GQL_SIMILAR = ('query ($v: [Float!]!) { querySimilarDocByEmbedding(by: %s, topK: %d, '
+               'vector: $v) { id name vector_distance } }')
+GQL_SIMILAR_ID = ('query { querySimilarDocById(by: %s, topK: %d, id: "%s") '
+                  '{ id name vector_distance } }')
+DISPATCH_ENTRIES = ("run_rows_vs_one_ragged", "run_rows_vs_one", "run_chain", "run_pairs")
+
+
+def graphql_levels(root):
+    """{level-2 uid: [its hot children]} of a (12b) answer's root object."""
+    return {int(o["id"], 16): [int(x["id"], 16) for x in o.get("child") or []]
+            for l1 in root.get("child") or [] for o in l1.get("child") or []}
+
+
+def expected_b(g, hot, extra=()):
+    """Query (b)'s numpy answer with the uids in `hot` tagged hot and the
+    (level-2, child) edges in `extra` added (phase 9 commits one)."""
+    want = expected(g, "b", hot)
+    hot = set(hot)
+    for l2, new in extra:
+        if new in hot and new not in want[l2]:
+            want[l2] = sorted(want[l2] + [new])
+    return want
+
+
+class _Entries:
+    """Counts, per dispatcher entry, the K1 calls made under it (the
+    outermost entry of a nesting takes them)."""
+
+    def __init__(self, count):
+        import threading
+
+        self.count, self.by, self.local = count, {}, threading.local()
+
+    def __enter__(self):
+        from dgraph_tpu_torch.query import dispatch
+
+        self.d = dispatch.DISPATCHER
+        for name in DISPATCH_ENTRIES:
+            real = getattr(self.d, name)
+
+            def entry(*a, _real=real, _name=name, **kw):
+                if getattr(self.local, "inside", False):
+                    return _real(*a, **kw)
+                self.local.inside, c0 = True, self.count()
+                try:
+                    return _real(*a, **kw)
+                finally:
+                    self.local.inside = False
+                    self.by[_name] = self.by.get(_name, 0) + self.count() - c0
+
+            setattr(self.d, name, entry)
+        return self
+
+    def __exit__(self, *exc):
+        for name in DISPATCH_ENTRIES:
+            delattr(self.d, name)
+
+
+class _WsClient:
+    """A graphql-transport-ws client on a socket: masked frames out,
+    `api/ws.py`'s reader for the server's frames."""
+
+    def __init__(self, port, timeout=600.0):
+        import base64
+        import os
+        import socket
+
+        self.sock = socket.create_connection(("127.0.0.1", port), timeout=timeout)
+        key = base64.b64encode(os.urandom(16)).decode()
+        self.sock.sendall((
+            f"GET /graphql HTTP/1.1\r\nHost: 127.0.0.1:{port}\r\nUpgrade: websocket\r\n"
+            f"Connection: Upgrade\r\nSec-WebSocket-Key: {key}\r\nSec-WebSocket-Version: 13\r\n"
+            "Sec-WebSocket-Protocol: graphql-transport-ws\r\n\r\n").encode())
+        head = b""
+        while b"\r\n\r\n" not in head:
+            got = self.sock.recv(1)
+            if not got:
+                raise AssertionError("(12e): the websocket closed during its handshake")
+            head += got
+        if b" 101 " not in head.split(b"\r\n", 1)[0]:
+            raise AssertionError(f"(12e): websocket handshake answered {head[:80]!r}")
+
+    def send(self, obj):
+        import os
+        import struct
+
+        payload = json.dumps(obj).encode()
+        n, mask = len(payload), os.urandom(4)
+        if n < 126:
+            hdr = bytes([0x81, 0x80 | n])
+        elif n < 1 << 16:
+            hdr = bytes([0x81, 0x80 | 126]) + struct.pack(">H", n)
+        else:
+            hdr = bytes([0x81, 0x80 | 127]) + struct.pack(">Q", n)
+        self.sock.sendall(hdr + mask + bytes(c ^ mask[i % 4] for i, c in enumerate(payload)))
+
+    def recv(self, timeout):
+        """The next message, or None if none comes within `timeout` s."""
+        import socket
+
+        from dgraph_tpu_torch.api import ws
+
+        self.sock.settimeout(timeout)
+        try:
+            got = ws.recv_frame(self.sock)
+        except socket.timeout:
+            return None
+        finally:
+            self.sock.settimeout(None)
+        if got is None:
+            raise AssertionError("(12e): the websocket closed")
+        return json.loads(got[1])
+
+    def close(self):
+        self.send({"id": "b", "type": "complete"})
+        self.sock.close()
+
+
+def serve_graphql(gserver, g, vserver, small_V, Qs, named, exact, extra=(), k=10, n_reads=16,
+                  n_flips=5, type_chunk=50_000, reps=3, min_recall=0.90, log=print):
+    """Phase 12: GraphQL over the port's HTTP front, on the graph server
+    `gserver` (holding the graph g, with the (level-2, child) edges in
+    `extra`) and the vector server `vserver` (phase 7's: `emb` holds every
+    row of the corpus, `emb_small` the rows `small_V`; `named` is a uid
+    whose `emb` is in the store; `exact` is the float64 top-k of Qs over
+    the whole corpus). Every request goes through an `HTTPServer` on
+    localhost and the port's `client.py` (the websocket through a socket),
+    on the forced device path. (12a) `dgraph.type` "Node" on every node,
+    the SDL uploaded to both servers, nothing rebuilt; (12b) query (b) as
+    `queryNode` and `getNode` (K1), its warm median beside (b) as DQL on
+    the same front; (12c) an aggregate and a page; (12d) n_reads
+    `querySimilarDocByEmbedding` reads by `emb_small` (brute: KV1) and by
+    `emb` (IVF: KV2, KV1) and one `querySimilarDocById`; (12e) n_flips
+    tag flips by `updateNode` alone, then n_flips more under a websocket
+    subscription to (b), then one commit that changes no answer. Every
+    answer is held to numpy or to the exact top-k. The kernel counts are
+    zeroed at the start and read at the end; the kernels' inputs are
+    kept per shape. Returns the measurements; raises when a check fails."""
+    import torch
+
+    from dgraph_tpu_torch.api.http_server import HTTPServer
+    from dgraph_tpu_torch.client import DgraphClient
+    from dgraph_tpu_torch.ops import ivf_scan, member_sweep, vector_topk
+
+    on_card = gserver.device.type == "cuda"
+
+    def sweeps():
+        return member_sweep.LAUNCHES if on_card else member_sweep.PLAIN_CALLS
+
+    def launches():
+        if on_card:
+            return {"member_sweep": member_sweep.LAUNCHES, "vector_topk": vector_topk.LAUNCHES,
+                    "ivf_slab_scan": ivf_scan.LAUNCHES}
+        return {"member_sweep": member_sweep.PLAIN_CALLS,
+                "vector_topk": vector_topk.PLAIN_CALLS, "ivf_slab_scan": ivf_scan.PLAIN_CALLS}
+
+    def gql(client, q, variables=None):
+        got = client.graphql(q, variables)
+        if got.get("errors") or got.get("data") is None:
+            raise AssertionError(f"GraphQL errors for {q[:80]!r}: {got.get('errors')}")
+        return got["data"]
+
+    def ms_of(fn):
+        t = time.perf_counter()
+        got = fn()
+        return (time.perf_counter() - t) * 1e3, got
+
+    hot = {int(u) for u in g["hot"]}
+    extra = [(int(a), int(b)) for a, b in extra]
+    nodes = np.unique(np.concatenate([[1], g["l1"], g["l2"], g["pool"]]).astype(np.uint64))
+    out = {"step_s": {}, "nodes": len(nodes)}
+    t_lap = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        out["step_s"][name] = now - t_lap[0]
+        t_lap[0] = now
+
+    front = {"graph": HTTPServer(gserver, port=0).start(),
+             "vectors": HTTPServer(vserver, port=0).start()}
+    try:
+        gc = DgraphClient(f"http://127.0.0.1:{front['graph'].port}", timeout=1800)
+        vc = DgraphClient(f"http://127.0.0.1:{front['vectors'].port}", timeout=1800)
+        for c, server in ((gc, gserver), (vc, vserver)):
+            if server.acl is not None:  # phase 9 turned ACL on: a guardian's token
+                c.login("groot", "password")
+        with forced_device(), _Capture(member_sweep) as cap, _VecCapture() as vcap, \
+                _Entries(sweeps) as entries:
+            member_sweep.LAUNCHES = member_sweep.PLAIN_CALLS = 0
+            vector_topk.LAUNCHES = vector_topk.PLAIN_CALLS = 0
+            ivf_scan.LAUNCHES = ivf_scan.PLAIN_CALLS = 0
+
+            # (12a) types, then the SDL on both servers; nothing rebuilt
+            lines = [f'<{hex(int(u))}> <dgraph.type> "Node" .' for u in nodes]
+            for s in range(0, len(lines), type_chunk):
+                gc.txn().mutate(set_rdf="\n".join(lines[s : s + type_chunk]), commit_now=True)
+            lap("types")
+            reindexed = []
+
+            def before(server):
+                return ({p: tuple(server.schema.get(p).tokenizers)
+                         for p in ("tag", "name") if server.schema.get(p) is not None},
+                        {p: (idx, len(idx)) for p, idx in server.vector_indexes.items()})
+
+            kept = {id(s): before(s) for s in (gserver, vserver)}
+            for server in (gserver, vserver):
+                server._reindex = lambda su, _r=server._reindex: reindexed.append(
+                    su.predicate) or _r(su)
+            try:
+                gc.set_graphql_schema(GRAPHQL_SDL)
+                vc.set_graphql_schema(GRAPHQL_SDL)
+            finally:
+                for server in (gserver, vserver):
+                    del server._reindex
+            lap("sdl")
+            for server in (gserver, vserver):
+                toks, idx = kept[id(server)]
+                now_toks, now_idx = before(server)
+                gone = {p: v for p, v in idx.items()
+                        if p not in now_idx or now_idx[p][0] is not v[0] or len(v[0]) != v[1]}
+                if reindexed or {p: now_toks.get(p) for p in toks} != toks or gone:
+                    raise AssertionError(f"(12a): the SDL upload rebuilt {reindexed}, tokenizers "
+                                         f"{toks} -> {now_toks}, vector indexes {gone}")
+            if gserver.graphql is None or vserver.graphql is None:
+                raise AssertionError("(12a): no GraphQL schema after the upload")
+            out["types"] = {"nodes": len(nodes), "chunks": -(-len(lines) // type_chunk),
+                            "s": out["step_s"]["types"], "sdl_s": out["step_s"]["sdl"],
+                            "kept": {p: v[1] for p, v in kept[id(vserver)][1].items()}}
+            log(f"(12a) dgraph.type on {len(nodes)} nodes through /mutate in "
+                f"{out['types']['s']:.3f}s; SDL uploaded to both fronts in "
+                f"{out['types']['sdl_s']:.3f}s: no reindex, tokenizers kept, vector "
+                f"indexes kept {out['types']['kept']}")
+
+            # (12b) query (b) through GraphQL and DQL on the same front
+            want = expected_b(g, hot, extra)
+            c0, e0 = sweeps(), dict(entries.by)
+            got = gql(gc, GQL_B)["queryNode"]
+            out["b_sweeps"] = sweeps() - c0
+            out["b_entries"] = {n: v - e0.get(n, 0) for n, v in entries.by.items()
+                                if v - e0.get(n, 0)}
+            if len(got) != 1 or graphql_levels(got[0]) != want:
+                raise AssertionError("(12b): queryNode's level 3 != numpy")
+            if out["b_sweeps"] < 1:
+                raise AssertionError("(12b): K1 did not launch")
+            if graphql_levels(gql(gc, GQL_GET_B)["getNode"]) != want:
+                raise AssertionError("(12b): getNode's level 3 != numpy")
+            if extract("b", gc.query(QUERIES["b"])["data"]) != want:
+                raise AssertionError("(12b): DQL (b) over HTTP != numpy")
+            timing = {"graphql": [], "get": [], "dql": []}
+            for _ in range(reps):
+                timing["graphql"].append(ms_of(lambda: gql(gc, GQL_B))[0])
+                timing["get"].append(ms_of(lambda: gql(gc, GQL_GET_B))[0])
+                timing["dql"].append(ms_of(lambda: gc.query(QUERIES["b"]))[0])
+            out["b_ms"] = {n: float(np.median(v)) for n, v in timing.items()}
+            if on_card:
+                log("(12b) one GraphQL (b) over HTTP, profiled:")
+                out["b_trace"] = profile_query(gserver, lambda: gql(gc, GQL_B), reps=1,
+                                               log=lambda m: log("  " + m))
+            lap("b")
+            log(f"(12b) queryNode and getNode (b) == numpy == DQL (b) over HTTP; K1 "
+                f"{out['b_sweeps']} launches, by dispatcher entry {out['b_entries']}; warm "
+                f"medians ms {out['b_ms']}")
+
+            # (12c) an aggregate and a page
+            count = gql(gc, 'query { aggregateNode(filter: {tag: {eq: "hot"}}) { count } }')
+            off = len(nodes) // 2
+            page = gql(gc, f"query {{ queryNode(first: 10, offset: {off}) {{ id }} }}")
+            page = [int(o["id"], 16) for o in page["queryNode"]]
+            if count["aggregateNode"]["count"] != len(hot):
+                raise AssertionError(f"(12c): aggregateNode count {count} != {len(hot)}")
+            if page != nodes[off : off + 10].tolist():
+                raise AssertionError(f"(12c): the page at offset {off} != numpy")
+            out["aggregate"] = {"count": len(hot), "page_offset": off}
+            lap("c")
+            log(f"(12c) aggregateNode(hot) count {len(hot)} and the page of 10 at offset {off} "
+                "== numpy")
+
+            # (12d) similarity: brute (emb_small) and IVF (emb)
+            Q = Qs[:n_reads]
+            ex_i, _ = exact
+            sm_i, sm_d = exact_topk(small_V, Q, k)
+            sims = {"emb_small": [], "emb": []}
+            for by, rows in sims.items():
+                for q in Q:
+                    ms, got = ms_of(lambda: gql(vc, GQL_SIMILAR % (by, k),
+                                                {"v": q.tolist()})["querySimilarDocByEmbedding"])
+                    rows.append((ms, got))
+            stored = {}  # uid -> its `emb` / `emb_small` in the store, as GraphQL reads it
+
+            def distances(by, q, got):
+                """Each row's vector_distance: the float64 distance where
+                the store holds the row's vector, null where it does not."""
+                uids = [int(o["id"], 16) for o in got]
+                ask = [u for u in uids if (by, u) not in stored]
+                if ask:
+                    res = vc.query(f'{{ q(func: uid({", ".join(map(hex, ask))})) '
+                                   f'{{ uid {by} }} }}')["data"]["q"]
+                    vals = {int(o["uid"], 16): o.get(by) for o in res}
+                    for u in ask:
+                        stored[by, u] = vals.get(u)
+                n_set = 0
+                for o, u in zip(got, uids):
+                    v = stored[by, u]
+                    d = o["vector_distance"]
+                    if v is None:
+                        if d is not None:
+                            raise AssertionError(f"(12d) {by}: a distance for {u:#x}, whose "
+                                                 "vector the store does not hold")
+                        continue
+                    want_d = float(np.sqrt(((np.asarray(v, np.float64)
+                                             - q.astype(np.float64)) ** 2).sum()))
+                    if d is None or abs(d - want_d) > 1e-9 * (1 + want_d):
+                        raise AssertionError(f"(12d) {by}: {u:#x} at {d} != {want_d}")
+                    n_set += 1
+                return n_set
+
+            exact_ids, with_d = 0, {"emb_small": 0, "emb": 0}
+            for i, (ms, got) in enumerate(sims["emb_small"]):
+                r = np.asarray([int(o["id"], 16) for o in got], np.int64) - 1
+                if not near_equal(small_V, Q[i : i + 1], [r], sm_d[i : i + 1]):
+                    raise AssertionError(f"(12d) emb_small read {i} != exact top-k beyond "
+                                         "near-ties")
+                exact_ids += int(np.array_equal(np.sort(r), np.sort(sm_i[i])))
+                with_d["emb_small"] += distances("emb_small", Q[i], got)
+            recall = []
+            for i, (ms, got) in enumerate(sims["emb"]):
+                r = {int(o["id"], 16) - 1 for o in got}
+                recall.append(len(r & set(ex_i[i].tolist())) / k)
+                with_d["emb"] += distances("emb", Q[i], got)
+            out["recall"] = float(np.mean(recall))
+            if out["recall"] < min_recall:
+                raise AssertionError(f"(12d) emb: recall@{k} {out['recall']} < {min_recall}")
+            own = vc.query(f"{{ q(func: uid({hex(named)})) {{ emb }} }}")["data"]["q"][0]["emb"]
+            by_id = gql(vc, GQL_SIMILAR_ID % ("emb", k, hex(named)))["querySimilarDocById"]
+            by_vec = gql(vc, GQL_SIMILAR % ("emb", k), {"v": own})["querySimilarDocByEmbedding"]
+            me = [o for o in by_id if int(o["id"], 16) == named]
+            if by_id != by_vec or len(me) != 1 or me[0]["vector_distance"] != 0.0 \
+                    or me[0]["name"] != f"v{named}":
+                raise AssertionError(f"(12d) querySimilarDocById({hex(named)}) != the search by "
+                                     f"its own vector, or lacks the node itself at 0: {me}")
+            out["similar"] = {
+                by: {"median_ms": float(np.median([ms for ms, _ in rows])),
+                     "first_ms": rows[0][0], "reads": len(rows),
+                     "rows_with_distance": with_d[by]}
+                for by, rows in sims.items()}
+            out["similar"]["emb_small"]["exact_id_lists"] = exact_ids
+            lap("d")
+            log(f"(12d) {n_reads} querySimilarDocByEmbedding reads a tier: emb_small (brute) == "
+                f"exact top-k outside near-ties ({exact_ids}/{n_reads} id lists identical), emb "
+                f"(IVF) recall@{k} {out['recall']:.4f}; vector_distance the float64 distance on "
+                f"every row whose vector the store holds ({with_d}), null elsewhere; "
+                f"querySimilarDocById({hex(named)}) == the search by its own vector; "
+                f"{json.dumps(out['similar'])}")
+
+            # (12e) tag flips by updateNode, alone and under a subscription
+            l3 = list(dict.fromkeys(int(u) for u in g["l3"]))
+            flips = [u for u in l3 if u not in hot][: 2 * n_flips]
+            hot_now = set(hot)
+
+            def flip(u):
+                c0 = sweeps()
+                ms, got = ms_of(lambda: gql(gc, GQL_FLIP % hex(u)))
+                if got["updateNode"]["numUids"] != 1:
+                    raise AssertionError(f"(12e): updateNode of {u:#x} answered {got}")
+                hot_now.add(u)
+                return ms, sweeps() - c0
+
+            def read_b(what):
+                if graphql_levels(gql(gc, GQL_B)["queryNode"][0]) != expected_b(g, hot_now,
+                                                                                 extra):
+                    raise AssertionError(f"(12e) {what}: (b) != numpy")
+
+            alone = []
+            for u in flips[:n_flips]:
+                alone.append(flip(u))
+                read_b(f"after flipping {u:#x}")
+            ws = _WsClient(front["graph"].port)
+            try:
+                ws.send({"type": "connection_init"})
+                if (ws.recv(60) or {}).get("type") != "connection_ack":
+                    raise AssertionError("(12e): no connection_ack")
+                ws.send({"id": "b", "type": "subscribe", "payload": {"query": SUB_B}})
+
+                def push(what):
+                    got = ws.recv(600)
+                    if got is None or got.get("type") != "next" or got.get("id") != "b":
+                        raise AssertionError(f"(12e) {what}: no push, got {got}")
+                    levels = graphql_levels(got["payload"]["data"]["queryNode"][0])
+                    if levels != expected_b(g, hot_now, extra):
+                        raise AssertionError(f"(12e) {what}: the push != numpy")
+
+                push("on subscribing")
+                subscribed = []
+                for u in flips[n_flips:]:
+                    subscribed.append(flip(u))
+                    push(f"after flipping {u:#x}")
+                    read_b(f"after flipping {u:#x} (subscribed)")
+                same = flips[0]  # hot already: the commit changes no answer
+                c0 = sweeps()
+                ms_same, got = ms_of(lambda: gql(gc, GQL_FLIP % hex(same)))
+                rerun_sweeps = sweeps() - c0
+                quiet = ws.recv(2.0)
+                if quiet is not None:
+                    raise AssertionError(f"(12e): a push for a commit that changed no answer: "
+                                         f"{str(quiet)[:200]}")
+            finally:
+                ws.close()
+            out["commits"] = {
+                "alone_p50_ms": float(np.median([ms for ms, _ in alone])),
+                "subscribed_p50_ms": float(np.median([ms for ms, _ in subscribed])),
+                "alone_ms": [ms for ms, _ in alone], "subscribed_ms": [ms for ms, _ in subscribed],
+                "k1_per_commit_alone": [n for _, n in alone],
+                "k1_per_commit_subscribed": [n for _, n in subscribed],
+                "unchanged": {"ms": ms_same, "k1": rerun_sweeps, "pushed": False}}
+            lap("e")
+            log(f"(12e) {n_flips} updateNode flips alone, then {n_flips} under a "
+                f"graphql-transport-ws subscription to (b): every push and every (b) after a "
+                f"flip == numpy; a commit that changed no answer re-ran the subscription "
+                f"({rerun_sweeps} K1) and pushed nothing; {json.dumps(out['commits'])}")
+        out["launches"] = launches()
+        out["entries"] = dict(entries.by)
+        out["sweep_shapes"] = cap.by_shape
+        out["captured"] = (vcap.topk, vcap.slabs)
+    finally:
+        for srv in front.values():
+            srv.stop()
+    return out
+
+
+def graphql_phase(gserver, g, vserver, small_V, Qs, named, exact, extra, card, t_start):
+    """Phase 12, then K1 against its plain version at every shape it took
+    and KV1 and KV2 at every site; prints as it goes. Returns the
+    measurements."""
+    print("[12] GraphQL on the card over the HTTP front and a websocket: types, SDL, "
+          "filtered reads (K1), aggregates, similarity (KV1, KV2), flips under a "
+          "subscription, on phase 4's and phase 7's servers; at " + card, flush=True)
+    gq = serve_graphql(gserver, g, vserver, small_V, Qs, named, exact, extra,
+                       log=lambda m: print("    " + m, flush=True))
+    if min(gq["launches"].values()) < 1:
+        raise AssertionError(f"(12) a kernel did not launch: {gq['launches']}")
+    bad = {k: n for k, n in sweep_shapes_equal(gq["sweep_shapes"]).items() if n}
+    if bad:
+        raise AssertionError(f"(12) K1 != plain at shapes (n, pa, pb): {bad}")
+    print(f"    K1 launches {gq['launches']['member_sweep']}, equal to plain at every shape "
+          f"(n, pa, pb) it took: {sorted(gq.pop('sweep_shapes'))}", flush=True)
+    served12 = served_kernels(gq.pop("captured"))
+    for site, r in served12.items():
+        print(f"    {site} (phase 12 inputs): equal to plain; {_fmt(r)}", flush=True)
+    print("    [12] " + json.dumps(gq), flush=True)
+    print(f"    total {time.perf_counter() - t_start:.3f}s", flush=True)
+    return gq
+
+
+def graphql_data(device="cuda", fanout=100, pool=200_000, n=1_000_000, d=768, n_named=10_000,
+                 n_small=100_000, ivf_threshold=None, nq=16, k=10, log=print):
+    """`--graphql-only`'s data: phase 4's graph through the native bulk
+    loader and phase 7's vectors (`load_vectors`), in Servers of their
+    own on `device`. Returns serve_graphql's arguments."""
+    import tempfile
+
+    from dgraph_tpu_torch.api.server import Server
+    from dgraph_tpu_torch.loaders.bulk2 import ParallelBulkLoader
+
+    g = make_graph(fanout, pool)
+    gserver = Server(device=device)
+    gserver.slow_query_ms = float("inf")
+    gserver.alter("child: [uid] .\ntag: string @index(exact) .")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_graphql_") as d_:
+        ld = ParallelBulkLoader(gserver, workdir=d_)
+        if not ld._native_ok():
+            raise AssertionError("the graph's bulk load would not take the native reduce")
+        ld.load_texts(list(nquad_chunks(g)))
+    log(f"graph bulk-loaded (native reduce) in {time.perf_counter() - t0:.3f}s")
+    vserver, V, Qs, _ = load_vectors(device, n, d, n_named, n_small, ivf_threshold, log=log)
+    return {"gserver": gserver, "g": g, "vserver": vserver, "small_V": V[:n_small].copy(),
+            "Qs": Qs, "named": n, "exact": exact_topk(V, Qs[:nq], k)}  # uid n has a name
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3423,6 +3958,9 @@ def main(argv=None) -> int:
                          "and stop")
     ap.add_argument("--ops-only", action="store_true",
                     help="after the build, run phase 10 alone (on rows made anew), and stop")
+    ap.add_argument("--graphql-only", action="store_true",
+                    help="after the build, bulk-load the graph and the vectors and run "
+                         "phase 12 alone, and stop")
     ap.add_argument("--cluster-only", action="store_true",
                     help="after the build, run phase 11 alone on the full graph (on rows "
                          "made anew), and stop")
@@ -3451,6 +3989,12 @@ def main(argv=None) -> int:
     if opts.ops_only:
         V, Q = make_corpus()
         data_in_and_out(V[:100_000].copy(), Q, None, card, t_start)
+        return 0
+    if opts.graphql_only:
+        print("[12] data: the graph through the native bulk loader, the vectors as in "
+              "phase 7", flush=True)
+        data = graphql_data(log=lambda m: print("    " + m, flush=True))
+        graphql_phase(*data.values(), (), card, t_start)
         return 0
     if opts.cluster_only:
         V, Q = make_corpus()
@@ -3546,15 +4090,16 @@ def main(argv=None) -> int:
     print("[9] the serving front on the card: plan cache, result cache, query_rdf on "
           "phase 4's server; coalesced similar_to, admission, ACL and audit on phase 7's; "
           "at " + card, flush=True)
-    front = {"graph": front_graph(s.pop("server"), s.pop("graph"),
-                                  log=lambda m: print("    " + m, flush=True))}
+    # phase 12 serves both servers again after phase 9
+    gserver, graph, vserver = s.pop("server"), s.pop("graph"), v.pop("server")
+    front = {"graph": front_graph(gserver, graph, log=lambda m: print("    " + m, flush=True))}
     bad = {k: n for k, n in sweep_shapes_equal(front["graph"]["sweep_shapes"]).items() if n}
     if bad:
         raise AssertionError(f"(9) K1 != plain at shapes (n, pa, pb): {bad}")
     print(f"    K1 launches {front['graph']['sweeps']}, equal to plain at every shape "
           f"(n, pa, pb) it took: {sorted(front['graph'].pop('sweep_shapes'))}", flush=True)
     # (9a) at 32 reads a client (64 before phase 11), for the time limit
-    front["vectors"] = front_vectors(v.pop("server"), all_Q, named=v["named"], per_client=32,
+    front["vectors"] = front_vectors(vserver, all_Q, named=v["named"], per_client=32,
                                      log=lambda m: print("    " + m, flush=True))
     launches9 = front["vectors"]["launches"]
     if min(launches9.values()) < 1:
@@ -3565,6 +4110,11 @@ def main(argv=None) -> int:
     print("    [9] " + json.dumps({"launches": {"member_sweep": front["graph"]["sweeps"],
                                                **launches9}, **front}), flush=True)
     print(f"    total {time.perf_counter() - t_start:.3f}s", flush=True)
+
+    edge = [tuple(int(u, 16) for u in front["graph"]["result_cache"]["edge"])]
+    gq = graphql_phase(gserver, graph, vserver, small_V, all_Q, v["named"], v.pop("exact"), edge,
+                       card, t_start)
+    del gserver, graph, vserver
 
     ops = data_in_and_out(small_V, all_Q, writes["mem"]["load"]["per_s"], card, t_start)
     cl = cluster_phase(small_V[:CLUSTER_VECTORS].copy(), all_Q, card, t_start)
@@ -3584,7 +4134,7 @@ def main(argv=None) -> int:
             ("u2", w["u2"]["sweeps"]),
             ("restart", w["after_restart_launches"]["member_sweep"]))},
         "9": front["graph"]["sweeps"], "10": ops["launches"]["member_sweep"],
-        "11": cl["launches"]["member_sweep"]}
+        "11": cl["launches"]["member_sweep"], "12": gq["launches"]["member_sweep"]}
     rows = [{
         "name": "member_sweep",
         "route": "cuda",
@@ -3609,7 +4159,8 @@ def main(argv=None) -> int:
             by_path.update({f"8 {arm} restart": w["after_restart_launches"]["vector_topk"]
                             for arm, w in writes.items()})
         by_path["9"] = launches9[name]
-        for phase, got in (("10", ops["launches"]), ("11", cl["launches"])):
+        for phase, got in (("10", ops["launches"]), ("11", cl["launches"]),
+                           ("12", gq["launches"])):
             if name in got:
                 by_path[phase] = got[name]
         rows.append({

@@ -485,10 +485,12 @@ def test_proc_clusters_without_data_dir_share_their_config_files(tmp_path):
 
 def test_debug_bundle_lock_edges(tmp_path):
     """The reference's debug bundle carries its static lock graph; the
-    port does not copy the reference's lint tooling (`analysis/`), so
-    its bundle carries the import error under `lock_graph` instead."""
+    port's carries its own (its verbatim `analysis/` copies run over
+    `dgraph_tpu_torch/`), with no `error` entry, and on the modules both
+    packages share verbatim its edges equal the reference's."""
     from dgraph_tpu.worker.harness import ProcCluster as RefProc
     from dgraph_tpu_torch.worker.harness import ProcCluster
+    from test_torch_http import _shared_edges
 
     edges = {}
     for side, make in (("ref", lambda d: RefProc(n_groups=1, replicas=1, data_dir=d)),
@@ -499,9 +501,10 @@ def test_debug_bundle_lock_edges(tmp_path):
             edges[side] = c.debug_bundle()["lock_graph"]
         finally:
             c.close()
-    assert edges["ref"] and all({"outer", "inner", "path"} <= set(e) for e in edges["ref"])
-    assert edges["port"] == [{"error": "ModuleNotFoundError: No module named "
-                                       "'dgraph_tpu_torch.analysis'"}]
+    for side in ("ref", "port"):
+        assert edges[side] and all({"outer", "inner", "path"} <= set(e) for e in edges[side])
+        assert not [e for e in edges[side] if "error" in e]
+    assert _shared_edges(edges["port"]) == _shared_edges(edges["ref"]) != []
 
 
 @pytest.mark.parametrize("pkg", ["dgraph_tpu", "dgraph_tpu_torch"])

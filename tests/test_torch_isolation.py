@@ -19,7 +19,9 @@
   applied in predicate shards, and one through a `ProcCluster` (2 x 3)
   answer a query. A `sitecustomize.py` on `PYTHONPATH` installs the same
   blocker in the cluster's replica processes, each of which must run a
-  `dgraph_tpu_torch` module.
+  `dgraph_tpu_torch` module. Last, a GraphQL schema uploaded through the
+  HTTP front's `/admin/schema/graphql` takes a GraphQL mutation and
+  answers a GraphQL query and a `/graphql` request.
 - Every module the port copied from the reference equals it but for the
   rebinding of `dgraph_tpu` to `dgraph_tpu_torch` and for citations of
   the upstream Go sources, written `dgraph/<path>` in the port; the
@@ -239,6 +241,20 @@ finally:
     pc.close()
 shutil.rmtree(d)
 print(json.dumps([sharded, tablets, dist, proc, children]))
+from dgraph_tpu_torch.api.http_server import HTTPServer
+from dgraph_tpu_torch.client import DgraphClient
+g = Server(device="cpu")
+srv = HTTPServer(g, port=0).start()
+try:
+    c = DgraphClient(f"http://127.0.0.1:{srv.port}")
+    c.set_graphql_schema("type Person { id: ID! name: String @search(by: [exact]) }")
+    added = g.graphql.execute('mutation { addPerson(input: [{name: "a"}, {name: "b"}]) '
+                              '{ numUids } }')
+    direct = g.graphql.execute('query { queryPerson(filter: {name: {eq: "b"}}) { name } }')
+    served = c.graphql('query { queryPerson(order: {asc: name}) { name } }')
+finally:
+    srv.stop()
+print(json.dumps([added, direct, served]))
 print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "dgraph_tpu")))
 """
 
@@ -265,8 +281,8 @@ def test_runs_with_jax_and_reference_blocked(tmp_path):
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
     )
     assert got.returncode == 0, got.stderr[-3000:]
-    lines = got.stdout.strip().splitlines()[-7:]
-    data, similar, restart, front, ops, cluster, mods = lines
+    lines = got.stdout.strip().splitlines()[-8:]
+    data, similar, restart, front, ops, cluster, graphql, mods = lines
     assert json.loads(data) == {
         "q": [{"friend": [{"uid": "0x3"}, {"uid": "0x100000004"}]}]
     }
@@ -298,6 +314,10 @@ def test_runs_with_jax_and_reference_blocked(tmp_path):
     for module, pythonpath in children:
         assert module == "dgraph_tpu_torch.worker.alpha_process"
         assert str(tmp_path) in pythonpath.split(os.pathsep)
+    added, direct, served = json.loads(graphql)
+    assert added == {"data": {"addPerson": {"numUids": 2}}}
+    assert direct == {"data": {"queryPerson": [{"name": "b"}]}}
+    assert served == {"data": {"queryPerson": [{"name": "a"}, {"name": "b"}]}}
     assert mods == "[]"
 
 
