@@ -145,6 +145,27 @@ Phases, each of which fails the run when it fails:
      after a flip equal to numpy), then a commit that changes no answer
      (no push). K1, KV1 and KV2 are held against their plain versions at
      every shape and site phase 12 gave them.
+ 13. the command line and the device mesh, after phase 12: (13a)
+     `python -m dgraph_tpu_torch bulk` loads phase 4's graph into a fresh
+     data dir and `python -m dgraph_tpu_torch alpha -p <dir> --port 0
+     --grpc_port 0` serves it on the card (its default device) as a
+     child process; (a)-(d) over HTTP and over gRPC (`client_grpc`'s
+     stub) must equal phase 4's answers byte for byte, cold and warm, and
+     alpha's use of the card is read from outside it (nvidia-smi's
+     compute processes, its /proc maps, the set-op counter of its
+     metrics route). (13b) the mesh (`parallel/mesh.py`) on 4 shards of
+     cuda:0: `sharded_rows_membership`, `sharded_membership` and
+     `sharded_intersect_count` of (b)'s level-3 rows against an operand
+     of more than 2^22 uids, `sharded_topk` over `emb`'s 1,000,000 x 768
+     for 16 queries, `sharded_kmeans_step` on `emb_small`'s rows, each
+     against its plain version and the one-device mesh, with times and
+     bounds; then, with the counts zeroed, `Server.query` (b) with the
+     dispatcher's giant-operand gate lowered (on phase 4's graph it
+     enters `_run_rows_sharded` and falls through, its uids spanning two
+     hi-32 segments; on the same graph with the pool below 2^32 the mesh
+     answers) and `similar_to` with `SHARD_VECTORS=1` on a fresh
+     `emb_small` index, equal to the exact top-10. Every KV1 call the
+     mesh made is held against its plain version.
 
 `--profile` adds, for the named queries (a-d of phase 4, e-i of phase
 7), where one warm run's time goes: host functions by own time
@@ -154,7 +175,8 @@ radix regime starts to beat its one-pass regime (`topk_crossover`);
 `--ops-only` runs phases 1-2 and then phase 10 alone, on rows made
 anew; `--cluster-only` likewise phase 11, on the full graph;
 `--graphql-only` likewise phase 12, on the graph bulk-loaded through the
-native loader and phase 7's vectors in Servers of its own.
+native loader and phase 7's vectors in Servers of its own; `--mesh-only`
+likewise phase 13, on the graph, its answers and the corpus made anew.
 
 The second-to-last lines are the kernel table (JSON) and the card; the
 last line is `{"ok": true, "device": {...}}`. Without a CUDA card the
@@ -197,15 +219,16 @@ QUERIES = {
 # ---------------------------------------------------------------------------
 
 
-def make_graph(fanout=100, pool=200_000, seed=7, hot_every=100, roots=None):
+def make_graph(fanout=100, pool=200_000, seed=7, hot_every=100, roots=None, low=False):
     """The fan-out graph of bench.py (level-3 targets drawn from a pool
     with `np.random.default_rng(seed)`), with half of the pool at or
-    above 2^32 and every `hot_every`-th pool node tagged hot. `roots`
-    level-1 nodes (default `fanout`), each row `fanout` wide."""
+    above 2^32 (none with `low`) and every `hot_every`-th pool node tagged
+    hot. `roots` level-1 nodes (default `fanout`), each row `fanout`
+    wide."""
     f = fanout
     r = f if roots is None else roots
     rng = np.random.default_rng(seed)
-    half = pool // 2
+    half = pool if low else pool // 2
     pool_uids = np.concatenate(
         [0x1000000 + np.arange(half), SEG + np.arange(pool - half)]
     ).astype(np.uint64)
@@ -434,6 +457,7 @@ def serve(device="cuda", fanout=100, pool=200_000, reps=3, log=print, profile=()
         if on_card:
             out["peak_bytes"] = torch.cuda.max_memory_allocated()
         out["device_cache"] = dispatch.DISPATCHER.device_cache.stats()
+        out["answers"] = answers
         for name, q in QUERIES.items():
             ms_dev = []
             for _ in range(reps):
@@ -1421,6 +1445,7 @@ def serve_vectors(device="cuda", n=1_000_000, d=768, n_named=10_000, n_small=100
     if keep:
         # uid n has a name; phase 12 reuses the exact top-k of Q
         out["server"], out["named"], out["exact"] = server, n, (ex_i, ex_d)
+        out["V"] = V  # phase 13 row-shards it over the mesh
     return out
 
 
@@ -2988,11 +3013,16 @@ def data_in_and_out(V, Q, json_rate, card, t_start):
 # phase 8's lsm arm: 25,000 of the 100,000 `emb_small` rows (all of them
 # before phase 11; 30.0 s to load, 7.26 s to rebuild in PR 5's run)
 LSM_VECTORS = 25_000
+# phase 10's rows in the whole script: 25,000 of the 100,000 (all of them
+# before phase 13, and with `--ops-only`; the vectors' Python reduce took
+# 43.0 s and the restores' rebuilds 12.0 s each on the H100 machine)
+OPS_VECTORS = 25_000
 
 CLUSTER_SCHEMA = "child: [uid] .\ntag: string @index(exact) ."
 # (11e)'s rows: each written key asks the replicated Zero for its tablet,
-# one in-process Raft round a key (2,000 rows: 49.7 s on the H100 machine)
-CLUSTER_VECTORS = 1_000
+# one in-process Raft round a key (2,000 rows: 49.7 s on the H100 machine;
+# 1,000 before phase 13, and with `--cluster-only`)
+CLUSTER_VECTORS = 500
 # The graph of phase 11 in the whole script: a tenth of phase 4's (10
 # level-1 nodes over a pool of 20,000). Every remote read is one RPC per
 # key, so the full graph's (c) alone takes about 200,000 RPCs a read, and
@@ -3937,6 +3967,552 @@ def graphql_data(device="cuda", fanout=100, pool=200_000, n=1_000_000, d=768, n_
             "Qs": Qs, "named": n, "exact": exact_topk(V, Qs[:nq], k)}  # uid n has a name
 
 
+# ---------------------------------------------------------------------------
+# The command line and the device mesh (phase 13)
+# ---------------------------------------------------------------------------
+
+# shards of the one card the mesh of (13b) puts the data plane on
+MESH_SHARDS = 4
+# a shared operand of at least this many uids takes the mesh in (13b):
+# query (b)'s filter set holds pool / 100 of them
+MESH_MIN_B = 1024
+
+
+def cli_argv(device, *args):
+    """`python -m dgraph_tpu_torch ...` on `device`: the card is the
+    command line's default, so only the host is named."""
+    dev = ["--device", "cpu"] if device == "cpu" else []
+    return [sys.executable, "-m", "dgraph_tpu_torch", *dev, *args]
+
+
+def _cli_env():
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONUNBUFFERED"] = "1"  # alpha prints its ports as it binds them
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+class Alpha:
+    """`python -m dgraph_tpu_torch alpha -p <dir> --port 0` as a child
+    process: the ports it prints, and the process killed on exit."""
+
+    def __init__(self, device, pdir, grpc=True):
+        self.argv = cli_argv(device, "alpha", "-p", pdir, "--port", "0",
+                             "--grpc_port", "0" if grpc else "-1")
+        self.grpc = grpc
+
+    def __enter__(self):
+        # a session of its own: alpha's forked apply-pool workers carry its
+        # command line and would outlive a kill of alpha alone
+        self.proc = subprocess.Popen(self.argv, env=_cli_env(), stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True, start_new_session=True)
+        self.http = self.grpc_port = None
+        try:
+            while self.http is None or (self.grpc and self.grpc_port is None):
+                line = self.proc.stdout.readline()
+                if not line:
+                    raise AssertionError(f"alpha exited ({self.proc.wait()}): "
+                                         f"{self.proc.stderr.read()[-3000:]}")
+                if line.startswith("alpha listening on http://"):
+                    self.http = int(line.rsplit(":", 1)[1])
+                elif line.startswith("alpha gRPC (api.Dgraph) on "):
+                    self.grpc_port = int(line.rsplit(":", 1)[1])
+        except BaseException:
+            self.__exit__()
+            raise
+        return self
+
+    def __exit__(self, *exc):
+        import os
+        import signal
+
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        self.proc.wait(timeout=60)
+        self.proc.stdout.close()
+        self.proc.stderr.close()
+
+
+def _post(port, path, body, ctype="application/dql", timeout=300):
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body.encode(),
+                                 headers={"Content-Type": ctype}, method="POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.read()
+
+
+def _get(port, path, timeout=60):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=timeout) as r:
+        return r.read()
+
+
+def _http_data(body):
+    """The `data` bytes of a query response: the front splices the
+    engine's encoded answer between `{"data":` and the extensions."""
+    head = b'{"data":'
+    if not body.startswith(head):
+        raise AssertionError(f"not a query response: {body[:200]!r}")
+    return body[len(head):body.rindex(b',"extensions":')]
+
+
+def compute_apps():
+    """[(pid, used memory)] of the card's compute processes (nvidia-smi)."""
+    rows = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return [tuple(x.strip() for x in r.split(",")) for r in rows if r.strip()]
+
+
+def protos_generated():
+    """gRPC is served from the committed `api_pb2.py`: the package runs
+    protoc only when it is older than `api.proto`, and the card machine
+    has no protoc."""
+    import os
+
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "dgraph_tpu_torch", "protos")
+    gen, proto = os.path.join(d, "api_pb2.py"), os.path.join(d, "api.proto")
+    if os.path.getmtime(gen) < os.path.getmtime(proto):
+        raise AssertionError("api_pb2.py is older than api.proto, so alpha would run protoc")
+
+
+def serve_cli(device, workdir, g, answers, texts=None, grpc=True, log=print):
+    """(13a): phase 4's graph through `python -m dgraph_tpu_torch bulk`
+    into a fresh data dir, then `alpha` on it (port 0, on `device`: the
+    card by default) answers (a)-(d) over HTTP and, with `grpc`, over
+    gRPC, each answer equal to phase 4's (`answers`) byte for byte. On the
+    card, alpha's use of it is read from outside the process: nvidia-smi's
+    compute processes, its /proc maps and the dispatcher's set-op counter
+    on the metrics route. Returns the measurements."""
+    import os
+
+    import torch
+
+    from dgraph_tpu_torch.protos import load_api_pb2
+
+    on_card = torch.device(device).type == "cuda"
+    texts = list(nquad_chunks(g)) if texts is None else texts
+    rdf, schema, pdir = (os.path.join(workdir, n) for n in ("graph.rdf", "schema.txt", "p"))
+    with open(rdf, "w") as f:
+        for t in texts:
+            f.write(t + "\n")
+    with open(schema, "w") as f:
+        f.write("child: [uid] .\ntag: string @index(exact) .\n")
+    out = {}
+    t0 = time.perf_counter()
+    bulk = subprocess.run(cli_argv(device, "bulk", "-p", pdir, "--schema", schema, rdf),
+                          env=_cli_env(), capture_output=True, text=True, timeout=600)
+    out["bulk_s"] = time.perf_counter() - t0
+    if bulk.returncode or "bulk loaded" not in bulk.stdout:
+        raise AssertionError(f"bulk failed ({bulk.returncode}): {bulk.stderr[-3000:]}")
+    out["bulk"] = bulk.stdout.strip().splitlines()[-1]
+    log(f"bulk: {out['bulk']} ({out['bulk_s']:.3f}s with the process)")
+    if grpc:
+        protos_generated()
+    before = compute_apps() if on_card else []
+    t0 = time.perf_counter()
+    with Alpha(device, pdir, grpc) as alpha:
+        health = json.loads(_get(alpha.http, "/health"))
+        out["start_s"] = time.perf_counter() - t0
+        if health[0]["status"] != "healthy":
+            raise AssertionError(f"alpha not healthy: {health}")
+        log(f"alpha pid {alpha.proc.pid} served HTTP on {alpha.http}"
+            + (f", gRPC on {alpha.grpc_port}" if grpc else "")
+            + f", healthy {out['start_s']:.3f}s after it started")
+        sends = {"http": lambda q: _http_data(_post(alpha.http, "/query", q))}
+        stub = None
+        if grpc:
+            from dgraph_tpu_torch.client_grpc import DgraphClientStub
+
+            pb = load_api_pb2()
+            stub = DgraphClientStub(f"127.0.0.1:{alpha.grpc_port}")
+            sends["grpc"] = lambda q: stub.query(pb.Request(query=q, read_only=True)).json
+        try:
+            out["ms"] = {}
+            for transport, send in sends.items():
+                for name, q in QUERIES.items():
+                    ms = []
+                    for _ in range(2):  # cold, then warm
+                        t = time.perf_counter()
+                        got = send(q)
+                        ms.append((time.perf_counter() - t) * 1e3)
+                        if got != answers[name]:
+                            raise AssertionError(f"({name}) over {transport} != phase 4's "
+                                                 f"answer ({len(got)} vs {len(answers[name])} "
+                                                 "bytes)")
+                    out["ms"][f"{transport} {name}"] = {"cold": ms[0], "warm": ms[1]}
+        finally:
+            if stub is not None:
+                stub.close()
+        metrics = _get(alpha.http, "/debug/prometheus_metrics").decode()
+        pairs = [float(line.split()[1]) for line in metrics.splitlines()
+                 if line.split(" ")[0].endswith("_setop_pairs_total")]
+        out["setop_pairs_total"] = pairs[0] if pairs else 0.0
+        if out["setop_pairs_total"] <= 0:
+            raise AssertionError("alpha's metrics route shows no set-op pair dispatched")
+        if on_card:
+            apps = compute_apps()
+            with open(f"/proc/{alpha.proc.pid}/maps") as f:
+                maps_cuda = "libcuda" in f.read()
+            pid_listed = any(a[0] == str(alpha.proc.pid) for a in apps)
+            out["card"] = {"apps_before": before, "apps": apps, "pid": alpha.proc.pid,
+                           "pid_listed": pid_listed, "maps_libcuda": maps_cuda}
+            # nvidia-smi may list a process under another pid namespace:
+            # then a compute process more than before, with alpha the one
+            # child that maps the CUDA driver
+            if not maps_cuda or not (pid_listed or len(apps) > len(before)):
+                raise AssertionError(f"alpha on the card? {out['card']}")
+    return out
+
+
+def corpus_centers(d=768, seed=1):
+    """make_corpus's 256 cluster centers (its first draw)."""
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((256, d)).astype(np.float32) * 4.0
+
+
+def _mesh_rows(g):
+    """(b)'s level-3 rows in the low hi-32 segment as padded sorted u32
+    rows (the dispatcher's form), and their lengths."""
+    rows = [np.unique(r[r < SEG]).astype(np.uint32)
+            for r in g["l3"].reshape(len(g["l2"]), g["f"])]
+    pa = max(8, 1 << (max(len(r) for r in rows) - 1).bit_length())
+    A = np.full((len(rows), pa), U32, np.uint32)
+    LA = np.zeros((len(rows),), np.int32)
+    for i, r in enumerate(rows):
+        A[i, : len(r)], LA[i] = r, len(r)
+    return A, LA
+
+
+def _giant_b(g, n_min=1 << 22, seed=11):
+    """A sorted u32 operand of at least n_min uids: every third pool uid
+    of the low segment and random others."""
+    rng = np.random.default_rng(seed)
+    low = g["pool"][g["pool"] < SEG][::3].astype(np.uint32)
+    b = np.unique(np.concatenate([low, rng.integers(0, U32, n_min + (n_min >> 4),
+                                                    dtype=np.uint32)]))
+    if len(b) < n_min:
+        raise AssertionError(f"giant operand of {len(b)} uids")
+    return b
+
+
+def _timed(on_card, fn, reps=5):
+    return _events_ms(fn, reps) if on_card else None
+
+
+def mesh_functions(device, g, V, Q, exact, X, log=print):
+    """(13b), the mesh functions on MESH_SHARDS shards of `device`, each
+    against its plain version (the same function on one device, without
+    the mesh) and the one-device mesh's answer, with times, the byte (or
+    operation) bound and the library call's time on the card. Returns
+    {function: result}."""
+    import torch
+
+    from dgraph_tpu_torch.ops import setops, vector_topk
+    from dgraph_tpu_torch.parallel import mesh as pmesh
+
+    on_card = torch.device(device).type == "cuda"
+    mesh = pmesh.make_mesh(device=device)
+    one = pmesh.make_mesh(1, device=device)
+    dev = mesh.devices[0]
+    res = {}
+
+    def row(name, route, shape, nbytes, ops=0, **kw):
+        b, by = _bound(nbytes, ops)
+        res[name] = {"route": route, "shape": shape, "bound_ms": b, "bound_by": by, **kw}
+        log(f"{name} {shape} [{route}]: " + ", ".join(
+            f"{k} {v:.6f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in res[name].items() if k not in ("route", "shape")))
+
+    # membership: (b)'s level-3 rows against a giant operand
+    A, LA = _mesh_rows(g)
+    b = _giant_b(g)
+    tile = -(-len(b) // mesh.size)
+    pb = mesh.size * max(8, 1 << (tile - 1).bit_length())
+    Bd = setops.to_device(setops.pad_sorted(b, pb), dev)
+    Ad, LAd = setops.to_device(A, dev), torch.from_numpy(LA).to(dev)
+    Bs = pmesh.shard(mesh, Bd)
+    got = pmesh.sharded_rows_membership(mesh, Ad, LAd, Bs, len(b))
+    plain = lambda: setops.membership(Ad, LAd, Bd, len(b))  # noqa: E731
+    want = np.isin(A, b) & (np.arange(A.shape[1])[None, :] < LA[:, None])
+    for what, m in (("plain", plain()), ("one device",
+                                        pmesh.sharded_rows_membership(one, Ad, LAd, Bd, len(b)))):
+        if not torch.equal(got, m):
+            raise AssertionError(f"sharded_rows_membership != {what}")
+    if not np.array_equal(got.cpu().numpy(), want):
+        raise AssertionError("sharded_rows_membership != numpy")
+    row("sharded_rows_membership", "setops.membership (plain torch) a shard, psum > 0",
+        [list(A.shape), len(b), pb], Ad.numel() * 8 + LAd.numel() * 4 + pb * 8 + A.size,
+        hits=int(want.sum()), max_abs_err=0.0,
+        ms=_timed(on_card, lambda: pmesh.sharded_rows_membership(mesh, Ad, LAd, Bs, len(b))),
+        plain_ms=_timed(on_card, plain),
+        library_ms=_timed(on_card, lambda: torch.isin(Ad, Bd[: len(b)])), launches=0)
+
+    a = np.unique(A[A != U32])
+    pa = mesh.size * max(8, 1 << (-(-len(a) // mesh.size) - 1).bit_length())
+    ad = setops.to_device(setops.pad_sorted(a, pa), dev)
+    got = pmesh.sharded_membership(mesh, ad, len(a), Bd, len(b))
+    plain = lambda: setops.membership(ad, len(a), Bd, len(b))  # noqa: E731
+    if not (torch.equal(got, plain())
+            and torch.equal(got, pmesh.sharded_membership(one, ad, len(a), Bd, len(b)))
+            and np.array_equal(got.cpu().numpy()[: len(a)], np.isin(a, b))):
+        raise AssertionError("sharded_membership != plain, one device or numpy")
+    row("sharded_membership", "setops.membership (plain torch) a shard, all_gather",
+        [pa, len(b)], pa * 8 + pb * 8 + pa, hits=int(got.sum()), max_abs_err=0.0,
+        ms=_timed(on_card, lambda: pmesh.sharded_membership(mesh, ad, len(a), Bd, len(b))),
+        plain_ms=_timed(on_card, plain),
+        library_ms=_timed(on_card, lambda: torch.isin(ad, Bd[: len(b)])), launches=0)
+    cnt = int(pmesh.sharded_intersect_count(mesh, ad, len(a), Bd, len(b)))
+    if cnt != int(np.isin(a, b).sum()) or cnt != int(
+            pmesh.sharded_intersect_count(one, ad, len(a), Bd, len(b))):
+        raise AssertionError("sharded_intersect_count != numpy or one device")
+    row("sharded_intersect_count", "setops.membership (plain torch) a shard, psum",
+        [pa, len(b)], pa * 8 + pb * 8 + 4, count=cnt, max_abs_err=0.0,
+        ms=_timed(on_card, lambda: pmesh.sharded_intersect_count(mesh, ad, len(a), Bd, len(b))),
+        plain_ms=_timed(on_card, lambda: plain().sum()),
+        library_ms=_timed(on_card, lambda: torch.isin(ad, Bd[: len(b)]).sum()), launches=0)
+    del Bd, Bs, Ad, LAd, ad
+
+    # top-k: the corpus row-sharded, one query at a time
+    k = 10
+    Vd = torch.from_numpy(V).to(dev)
+    valid = torch.ones(len(V), dtype=torch.bool, device=dev)
+    Vs, valids = pmesh.shard(mesh, Vd), pmesh.shard(mesh, valid)
+    Qd = torch.from_numpy(Q).to(dev)
+    l0 = vector_topk.LAUNCHES
+    with _VecCapture() as cap:
+        rows = [pmesh.sharded_topk(mesh, Vs, valids, q, k) for q in Qd]
+    launches = vector_topk.LAUNCHES - l0
+
+    def plain_topk(q):
+        d2 = ((Vd - q[None, :]) ** 2).sum(dim=1)
+        return vector_topk.topk_plain(d2[None, :], k, "distance", valid=valid)
+
+    ids = np.stack([r[1].cpu().numpy() for r in rows])
+    err = 0.0
+    for q, (d, i) in zip(Qd, rows):
+        d1, i1 = pmesh.sharded_topk(one, Vd, valid, q, k)
+        pd, pi = plain_topk(q)
+        for what, (wd, wi) in (("one device", (d1, i1)), ("plain", (pd[0], pi[0]))):
+            if not torch.equal(i.long(), wi.long()):
+                log(f"sharded_topk ids != {what} (a near-tie?): {i.tolist()} {wi.tolist()}")
+            err = max(err, float((d - wd).abs().max()))
+    if not near_equal(V, Q, ids, exact[1][: len(Q)]):
+        raise AssertionError("sharded_topk != the exact top-k outside near-ties")
+    same = int(sum(np.array_equal(i, e) for i, e in zip(ids, exact[0][: len(Q)])))
+    q0 = Qd[0]
+    row("sharded_topk", "KV1 (vector_topk.cu) a shard on the finished distance, all_gather, KV1",
+        [list(V.shape), len(Q), k], V.nbytes + len(V) + Q.shape[1] * 4 + k * 8,
+        3 * V.size, exact_id_lists=same, max_abs_err=err,
+        ms=_timed(on_card, lambda: pmesh.sharded_topk(mesh, Vs, valids, q0, k)),
+        plain_ms=_timed(on_card, lambda: plain_topk(q0)),
+        library_ms=_timed(on_card, lambda: torch.topk(torch.cdist(q0[None, :], Vd), k,
+                                                      largest=False)),
+        launches=launches)
+    del Vd, valid, Vs, valids
+    captured = (cap.topk, cap.slabs)
+
+    # k-means: one Lloyd step of X from the corpus's own centers (no
+    # near-tie in the assignment, so the sums alone differ in their order)
+    C = torch.from_numpy(corpus_centers(X.shape[1])).to(dev)
+    Xd = torch.from_numpy(X).to(dev)
+    vx = torch.ones(len(X), dtype=torch.bool, device=dev)
+    Xs, vxs = pmesh.shard(mesh, Xd), pmesh.shard(mesh, vx)
+    got = pmesh.sharded_kmeans_step(mesh, Xs, vxs, C)
+    want = pmesh.sharded_kmeans_step(one, Xd, vx, C)
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"sharded_kmeans_step != one device: {err}")
+    row("sharded_kmeans_step", "torch.matmul (f32) + index_add_ a shard, psum",
+        [list(X.shape), list(C.shape)], X.nbytes + len(X) + 2 * C.numel() * 4,
+        2 * X.shape[0] * C.shape[0] * X.shape[1], max_abs_err=err,
+        ms=_timed(on_card, lambda: pmesh.sharded_kmeans_step(mesh, Xs, vxs, C)),
+        plain_ms=_timed(on_card, lambda: pmesh.sharded_kmeans_step(one, Xd, vx, C)),
+        library_ms=None, launches=0)
+    return res, captured
+
+
+def mesh_main_path(device, g, answers, texts, small_V, Q, min_b=MESH_MIN_B, log=print):
+    """(13b), the branches that use the mesh, on MESH_SHARDS shards of
+    `device` with the counts zeroed just before: `Server.query` (b) with
+    the giant-operand gate at `min_b` uids, first over phase 4's graph
+    (its uids span two hi-32 segments, so `_run_rows_sharded` hands the
+    rows back to the single-device path; the answer must equal phase 4's)
+    and then over the same graph with the pool below 2^32 (the mesh
+    answers, equal to the one-device answer and numpy); then
+    `similar_to` on a fresh `emb_small` index with `SHARD_VECTORS=1`,
+    equal to the exact top-10. Returns the counts and the captured KV1
+    inputs."""
+    import tempfile
+
+    import torch
+
+    from dgraph_tpu_torch.api.server import Server
+    from dgraph_tpu_torch.loaders.bulk2 import ParallelBulkLoader
+    from dgraph_tpu_torch.ops import member_sweep, vector_topk
+    from dgraph_tpu_torch.parallel import mesh as pmesh
+    from dgraph_tpu_torch.query import dispatch
+
+    def graph_server(texts):
+        srv = Server(device=device)
+        srv.slow_query_ms = float("inf")
+        srv.alter("child: [uid] .\ntag: string @index(exact) .")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as d:
+            ParallelBulkLoader(srv, workdir=d).load_texts(texts)
+        return srv
+
+    t0 = time.perf_counter()
+    g_low = make_graph(g["f"], len(g["pool"]), roots=len(g["l1"]), low=True)
+    servers = {"phase 4's graph": (graph_server(texts), g),
+               "one segment": (graph_server(list(nquad_chunks(g_low))), g_low)}
+    out = {"load_s": time.perf_counter() - t0}
+    log(f"two graph servers bulk-loaded in {out['load_s']:.3f}s")
+    routed = []
+    real = dispatch.SetOpDispatcher._run_rows_sharded
+
+    def run_rows_sharded(self, *a):
+        got = real(self, *a)
+        routed.append(got is not None)
+        return got
+
+    dispatch.SetOpDispatcher._run_rows_sharded = run_rows_sharded
+    saved = dispatch._SHARD_MIN_B
+    try:
+        with forced_device():
+            member_sweep.LAUNCHES = member_sweep.PLAIN_CALLS = 0
+            vector_topk.LAUNCHES = vector_topk.PLAIN_CALLS = 0
+            for what, (srv, gg) in servers.items():
+                # the two stores hold the same keys, perhaps at the same
+                # timestamps: the operand cache must not serve one the
+                # other's operand (ROADMAP Queue 3)
+                dispatch.DISPATCHER.device_cache.clear()
+                dispatch._SHARD_MIN_B = min_b
+                del routed[:]
+                t = time.perf_counter()
+                got = _run_query(srv, QUERIES["b"])
+                ms = (time.perf_counter() - t) * 1e3
+                entered, took = len(routed), sum(routed)
+                dispatch._SHARD_MIN_B = saved
+                one = _run_query(srv, QUERIES["b"])
+                if extract("b", json.loads(got)) != expected(gg, "b") or got != one:
+                    raise AssertionError(f"(b) on {what} through the mesh != the single-device "
+                                         "answer or numpy")
+                if gg is g and got != answers["b"]:
+                    raise AssertionError("(b) through the mesh != phase 4's answer")
+                out[what] = {"ms": ms, "entered": entered, "mesh_answered": took}
+                log(f"(b) on {what}: {ms:.3f} ms; _run_rows_sharded entered {entered}, "
+                    f"answered {took}; equal to the single-device answer, numpy"
+                    + (" and phase 4's" if gg is g else ""))
+            if out["phase 4's graph"]["mesh_answered"] or not out["phase 4's graph"]["entered"]:
+                raise AssertionError("phase 4's (b) should enter the mesh branch and fall through")
+            if not out["one segment"]["mesh_answered"]:
+                raise AssertionError("the one-segment (b) did not take the mesh")
+            del servers
+            # similar_to over a row-sharded emb_small
+            with knobs(SHARD_VECTORS="1"):
+                srv = Server(device=device)
+                srv.slow_query_ms = float("inf")
+                srv.alter(SMALL_SCHEMA)
+                idx = srv.vector_indexes["emb_small"]
+                idx.bulk_load(np.arange(1, len(small_V) + 1, dtype=np.uint64), small_V)
+                with _VecCapture() as cap:
+                    rows = []
+                    t = time.perf_counter()
+                    for q in Q:
+                        data = json.loads(_run_query(
+                            srv, '{ v(func: similar_to(emb_small, 10, "%s")) { uid } }'
+                            % _vec_text(q)))
+                        rows.append(sorted(int(o["uid"], 16) - 1 for o in data["v"]))
+                    out["similar_ms"] = (time.perf_counter() - t) * 1e3 / len(Q)
+                if idx._mesh is None or idx._mesh.size != MESH_SHARDS:
+                    raise AssertionError("the emb_small index did not take the mesh")
+            ex_i, ex_d = exact_topk(small_V, Q, 10)
+            if not near_equal(small_V, Q, rows, ex_d):
+                raise AssertionError("similar_to over the mesh != the exact top-10")
+            out["similar_exact"] = int(sum(r == sorted(e) for r, e in zip(rows, ex_i.tolist())))
+            out["launches"] = {"member_sweep": member_sweep.LAUNCHES if device != "cpu"
+                               else member_sweep.PLAIN_CALLS,
+                               "vector_topk": vector_topk.LAUNCHES if device != "cpu"
+                               else vector_topk.PLAIN_CALLS}
+            log(f"similar_to(emb_small) x {len(Q)} over {MESH_SHARDS} shards: "
+                f"{out['similar_ms']:.3f} ms a read, {out['similar_exact']} of {len(Q)} id "
+                f"lists exact (any other within near-ties); launches {out['launches']}")
+    finally:
+        dispatch.SetOpDispatcher._run_rows_sharded = real
+        dispatch._SHARD_MIN_B = saved
+        dispatch.DISPATCHER.device_cache.clear()  # nor a later phase's stores
+    return out, (cap.topk, cap.slabs)
+
+
+def mesh_data(device="cuda", fanout=100, pool=200_000, log=print):
+    """`--mesh-only`'s graph and phase 4's answers to it: the graph
+    through the native bulk loader, (a)-(d) answered on the forced device
+    path, each held to numpy."""
+    import tempfile
+
+    from dgraph_tpu_torch.api.server import Server
+    from dgraph_tpu_torch.loaders.bulk2 import ParallelBulkLoader
+
+    g = make_graph(fanout, pool)
+    srv = Server(device=device)
+    srv.slow_query_ms = float("inf")
+    srv.alter("child: [uid] .\ntag: string @index(exact) .")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as d:
+        ParallelBulkLoader(srv, workdir=d).load_texts(list(nquad_chunks(g)))
+    with forced_device():
+        answers = {name: _run_query(srv, q) for name, q in QUERIES.items()}
+    for name, got in answers.items():
+        if extract(name, json.loads(got)) != expected(g, "a" if name == "a" else "b"):
+            raise AssertionError(f"query {name}: != numpy reference")
+    log("graph bulk-loaded and (a)-(d) answered, equal to numpy")
+    return g, answers
+
+
+def cli_and_mesh_phase(g, answers, V, Q, exact, small_V, card, t_start):
+    """Phase 13 on the card: (13a) the command line, (13b) the mesh."""
+    import tempfile
+
+    from dgraph_tpu_torch.parallel import mesh as pmesh
+
+    log = lambda m: print("    " + m, flush=True)  # noqa: E731
+    t13 = time.perf_counter()
+    print("[13] the command line on the card: bulk, then alpha over HTTP and gRPC; at "
+          + card, flush=True)
+    texts = list(nquad_chunks(g))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as d:
+        cli = serve_cli("cuda", d, g, answers, texts, log=log)
+    for key, ms in cli["ms"].items():
+        log(f"({key.split()[1]}) over {key.split()[0]}: cold {ms['cold']:.3f} ms, warm "
+            f"{ms['warm']:.3f} ms; equal to phase 4's answer byte for byte")
+    log("[13a] " + json.dumps(cli))
+    print(f"[13b] the device mesh on {MESH_SHARDS} shards of cuda:0; at " + card, flush=True)
+    pmesh.DEVICES = ["cuda:0"] * MESH_SHARDS
+    try:
+        fns, cap_fns = mesh_functions("cuda", g, V, Q[:16], exact, small_V, log=log)
+        path, cap_path = mesh_main_path("cuda", g, answers, texts, small_V, Q[:16], log=log)
+    finally:
+        pmesh.DEVICES = None
+    served = {}
+    for cap in (cap_fns, cap_path):
+        for site, r in served_kernels(cap).items():
+            served[site] = r
+            log(f"{site} (phase 13 inputs): equal to plain; {_fmt(r)}")
+    out = {"cli": cli, "mesh": fns, "path": path, "launches": path["launches"],
+           "served": served, "s": time.perf_counter() - t13}
+    print("    [13] " + json.dumps({"mesh": fns, "path": path}), flush=True)
+    print(f"    phase 13 {out['s']:.3f}s; total {time.perf_counter() - t_start:.3f}s",
+          flush=True)
+    return out
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3964,6 +4540,9 @@ def main(argv=None) -> int:
     ap.add_argument("--cluster-only", action="store_true",
                     help="after the build, run phase 11 alone on the full graph (on rows "
                          "made anew), and stop")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="after the build, run phase 13 alone (the graph, its answers and "
+                         "the corpus made anew), and stop")
     opts = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3998,7 +4577,13 @@ def main(argv=None) -> int:
         return 0
     if opts.cluster_only:
         V, Q = make_corpus()
-        cluster_phase(V[:CLUSTER_VECTORS].copy(), Q, card, t_start, full=True)
+        cluster_phase(V[:1_000].copy(), Q, card, t_start, full=True)
+        return 0
+    if opts.mesh_only:
+        g, answers = mesh_data("cuda", log=lambda m: print("    " + m, flush=True))
+        V, Q = make_corpus()
+        cli_and_mesh_phase(g, answers, V, Q, exact_topk(V, Q[:16], 10), V[:100_000].copy(),
+                           card, t_start)
         return 0
 
     print("[3] member sweep vs plain (exact), times in ms at " + card, flush=True)
@@ -4112,11 +4697,16 @@ def main(argv=None) -> int:
     print(f"    total {time.perf_counter() - t_start:.3f}s", flush=True)
 
     edge = [tuple(int(u, 16) for u in front["graph"]["result_cache"]["edge"])]
-    gq = graphql_phase(gserver, graph, vserver, small_V, all_Q, v["named"], v.pop("exact"), edge,
+    exact = v.pop("exact")
+    gq = graphql_phase(gserver, graph, vserver, small_V, all_Q, v["named"], exact, edge,
                        card, t_start)
-    del gserver, graph, vserver
+    del gserver, vserver
+    p13 = cli_and_mesh_phase(graph, s.pop("answers"), v.pop("V"), all_Q, exact, small_V, card,
+                             t_start)
+    del graph
 
-    ops = data_in_and_out(small_V, all_Q, writes["mem"]["load"]["per_s"], card, t_start)
+    ops = data_in_and_out(small_V[:OPS_VECTORS].copy(), all_Q, writes["mem"]["load"]["per_s"],
+                          card, t_start)
     cl = cluster_phase(small_V[:CLUSTER_VECTORS].copy(), all_Q, card, t_start)
     del small_V, all_Q
 
@@ -4134,7 +4724,8 @@ def main(argv=None) -> int:
             ("u2", w["u2"]["sweeps"]),
             ("restart", w["after_restart_launches"]["member_sweep"]))},
         "9": front["graph"]["sweeps"], "10": ops["launches"]["member_sweep"],
-        "11": cl["launches"]["member_sweep"], "12": gq["launches"]["member_sweep"]}
+        "11": cl["launches"]["member_sweep"], "12": gq["launches"]["member_sweep"],
+        "13": p13["launches"]["member_sweep"]}
     rows = [{
         "name": "member_sweep",
         "route": "cuda",
@@ -4160,7 +4751,7 @@ def main(argv=None) -> int:
                             for arm, w in writes.items()})
         by_path["9"] = launches9[name]
         for phase, got in (("10", ops["launches"]), ("11", cl["launches"]),
-                           ("12", gq["launches"])):
+                           ("12", gq["launches"]), ("13", p13["launches"])):
             if name in got:
                 by_path[phase] = got[name]
         rows.append({

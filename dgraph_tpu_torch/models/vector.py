@@ -670,14 +670,6 @@ class VectorIndex:
 
         if not self._dirty and self._device is not None:
             return
-        if bool(config.get("SHARD_VECTORS")):
-            # the reference row-shards the corpus over its device mesh
-            # (parallel/mesh.py sharded_topk); the port's mesh is ROADMAP
-            # item 13, and the knob is never ignored silently
-            raise NotImplementedError(
-                "DGRAPH_TPU_SHARD_VECTORS: the row-sharded vector corpus is "
-                "not ported yet (ROADMAP item 13, parallel/mesh.py)"
-            )
         with self._lock:
             # gather atomically: the quant path's compaction renumbers
             # rows and swaps these buffers under the same lock, so an
@@ -695,6 +687,39 @@ class VectorIndex:
         valid[:nlive] = True
         self._uids_np = uids
         self._mesh = None
+        mesh = None
+        if bool(config.get("SHARD_VECTORS")):
+            from dgraph_tpu_torch.parallel import mesh as pmesh
+
+            mesh = pmesh.make_mesh(device=self.device)
+        if mesh is not None and mesh.size > 1:
+            # row-shard the corpus over the device mesh: per-shard top-k,
+            # all_gather, global reduce (parallel/mesh.py sharded_topk —
+            # the TP-over-rows data plane for 1M×768-class corpora)
+            ndev = mesh.size
+            rows = -(-cap // ndev) * ndev
+            if rows != cap:
+                mat = np.vstack([mat, np.zeros((rows - cap, d), np.float32)])
+                uids = np.concatenate(
+                    [uids, np.zeros((rows - cap,), np.uint64)]
+                )
+                valid = np.concatenate(
+                    [valid, np.zeros((rows - cap,), bool)]
+                )
+                self._uids_np = uids
+            self._mesh = mesh
+            self._device = {
+                "vecs": pmesh.shard(mesh, mat),
+                "uids": uids,  # host: gathered indices map back to uids
+                "valid": pmesh.shard(mesh, valid),
+                "sqnorm": None,
+            }
+            self._dirty = False
+            if nlive >= self.ivf_threshold:
+                self._train_ivf(mat[:nlive])
+            else:
+                self._ivf = None
+            return
         dev = self.device
         self._device = {
             "vecs": torch.from_numpy(mat).to(dev),
@@ -746,7 +771,20 @@ class VectorIndex:
         # widen the candidate pool until k survivors or the whole set seen
         # (the HNSW analog is raising ef; ref index.go VectorIndexOptions)
         while True:
-            if self._jit_ivf_wins(1):
+            if self._mesh is not None:
+                from dgraph_tpu_torch.parallel import mesh as pmesh
+
+                npool = min(max(pool, kk), self._live)
+                dd, idx = pmesh.sharded_topk(
+                    self._mesh,
+                    self._device["vecs"],
+                    self._device["valid"],
+                    torch.tensor(q),
+                    npool,
+                )
+                cand_dists = dd.cpu().numpy()
+                cand_uids = self._device["uids"][idx.cpu().numpy()]
+            elif self._jit_ivf_wins(1):
                 COUNTERS.path_jit_ivf += 1
                 cand_uids, cand_dists = self._ivf_search(q, max(pool, 4 * kk))
             else:
@@ -802,6 +840,10 @@ class VectorIndex:
         if self._use_quant():
             return self._quant_search_batch(Q, k)
         self._sync_device()
+        if self._mesh is not None:
+            # sharded corpus has no replicated sqnorm; reuse the per-query
+            # mesh path (still one dispatch per query)
+            return np.stack([self.search(q, k) for q in Q])
         import torch
 
         kk = min(max(k, 1), self._live)

@@ -38,8 +38,11 @@ def nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
+    # torch's own lookup (CUDA_HOME or CUDA_PATH, then nvcc's directory):
+    # the port reads the environment only through x/config.py
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    path = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "nvcc")
     if not os.path.exists(path):
         raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
     return path

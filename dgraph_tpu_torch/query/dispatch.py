@@ -10,7 +10,9 @@ to this dispatcher, which:
   3. runs one batched op per bucket (ops/setops.py, and the member-sweep
      kernel for small-side intersect buckets, ops/member_sweep.py),
   4. keeps tiny batches on the host (native C++ loops), where moving the
-     operands to the card costs more than the work.
+     operands to the card costs more than the work,
+  5. row-shards a giant shared operand over the dispatcher's device mesh
+     (parallel/mesh.py) when the mesh has more than one device.
 
 The dispatcher is bound to one torch device. `cuda` is the default; the
 tests bind `cpu`, where the same batched ops run as CPU tensors. Asking
@@ -45,6 +47,10 @@ _DEVICE_MIN_TOTAL = (
 # engine is in, and the pre-engine cliff (256) re-applies without it.
 _PACKED_MIN_RATIO = int(config.get("PACKED_MIN_RATIO"))
 _PACKED_FALLBACK_RATIO = 256
+# A shared operand of at least this many uids is row-sharded over the
+# dispatcher's device mesh (multi-part list data plane) when the mesh
+# has more than one device.
+_SHARD_MIN_B = int(config.get("SHARD_MIN_B"))
 _FORCE_DEVICE = bool(config.get("FORCE_DEVICE"))
 # member-sweep kernel for small-side intersect buckets
 _USE_PALLAS = bool(config.get("PALLAS"))
@@ -424,6 +430,14 @@ class SetOpDispatcher:
                     off += n
                 return out
             return [_np_op(op, r, b) for r in rows]
+        if (
+            op in ("intersect", "difference")
+            and len(b) >= _SHARD_MIN_B
+            and self._mesh().size > 1
+        ):
+            got = self._run_rows_sharded(op, rows, b, b_token)
+            if got is not None:
+                return got
         bseg = split_segments(np.asarray(b, np.uint64))
         row_segs = [split_segments(np.asarray(r, np.uint64)) for r in rows]
         his = set(bseg)
@@ -481,6 +495,70 @@ class SetOpDispatcher:
         # vmap(in_axes=(0, 0, None, None)); the setops broadcast a 1-D b
         out, cnt = _BATCH_OPS[op](Ad, LAd, Bd, LB)
         return [join_segments({hi: r}) for r in _u32_rows(out, cnt, n)]
+
+    def _mesh(self):
+        """The dispatcher's device mesh (parallel/mesh.py), on its device."""
+        from dgraph_tpu_torch.parallel import mesh as pmesh
+
+        return pmesh.make_mesh(device=self.device)
+
+    def _run_rows_sharded(self, op, rows, b, b_token):
+        """Row-shard the giant shared operand over the device mesh and
+        OR-reduce per-row membership masks (the multi-part list data
+        plane). Returns None when shapes don't qualify (caller falls
+        through to the single-device path)."""
+        from dgraph_tpu_torch.parallel import mesh as pmesh
+
+        b64 = np.asarray(b, np.uint64)
+        bseg = split_segments(b64)
+        row_segs = [split_segments(np.asarray(r, np.uint64)) for r in rows]
+        his = set(bseg)
+        for rs in row_segs:
+            his |= set(rs)
+        if len(his) != 1:
+            return None
+        hi = next(iter(his))
+        b32 = bseg[hi]
+        mesh = self._mesh()
+        ndev = mesh.size
+
+        Bd = None
+        tile = -(-len(b32) // ndev)
+        tile = max(_MIN_PAD, 1 << (tile - 1).bit_length())
+        pb = tile * ndev
+        if b_token is not None:
+            cached = self.device_cache.get(("bshard", b_token, hi, pb))
+            if cached is not None:
+                Bd = cached[0]
+        if Bd is None:
+            Bd = pmesh.shard(mesh, setops.pad_sorted(b32, pb))
+            if b_token is not None:
+                self.device_cache.put(
+                    ("bshard", b_token, hi, pb), [b_token[0]], (Bd,), pb * 8
+                )
+
+        n = len(rows)
+        pa = _pow2(max((len(rs.get(hi, ())) for rs in row_segs), default=1))
+        A = np.full((n, pa), setops.UINT32_MAX, np.uint32)
+        LA = np.zeros((n,), np.int32)
+        for i, rs in enumerate(row_segs):
+            r32 = rs.get(hi, np.zeros((0,), np.uint32))
+            A[i, : len(r32)] = r32
+            LA[i] = len(r32)
+        mask = (
+            pmesh.sharded_rows_membership(
+                mesh, setops.to_device(A, mesh.devices[0]), LA, Bd, len(b32)
+            )
+            .cpu()
+            .numpy()
+        )
+        out = []
+        for i in range(n):
+            row = A[i, : LA[i]]
+            m = mask[i, : LA[i]]
+            kept = row[m] if op == "intersect" else row[~m]
+            out.append(join_segments({hi: kept}))
+        return out
 
     def run_rows_vs_one_ragged(
         self,

@@ -46,6 +46,7 @@ import inspect
 import itertools
 import json
 import os
+import pathlib
 import re
 import sys
 import tempfile
@@ -270,7 +271,7 @@ class Runner:
     def _fixture(self, name, ctx):
         side, fname, fixtures, tmp, mp, finals = ctx
         if name == "tmp_path":
-            return tmp
+            return pathlib.Path(tmp)
         if name == "monkeypatch":
             return mp
         fn, scope, _ = fixtures[name]
@@ -411,6 +412,14 @@ def runner():
 RETRIED = {("test_serving_front", "test_http_429_with_retryable_code")}
 
 
+def _untmp(v, tmp):
+    if isinstance(v, str):
+        return v.replace(tmp, "<tmp>")
+    if isinstance(v, (list, tuple)):
+        return [_untmp(x, tmp) for x in v]
+    return v
+
+
 def run_both(runner, case, tmp_path, request):
     """The case on the reference, then on the port: the port's answers
     must equal the reference's. An xfail case raises `CaseFailed` when
@@ -425,6 +434,8 @@ def run_both(runner, case, tmp_path, request):
             if not xfail:
                 raise
             got[side], errors[side] = runner.answers, e
+    # a path under the side's own tmp_path (a backup destination, say)
+    got = {side: _untmp(got[side], str(tmp_path / side)) for side in SIDES}
     if (fname, tname) in RETRIED:
         got = {side: [a for i, a in enumerate(got[side]) if i == 0 or a != got[side][i - 1]]
                for side in SIDES}

@@ -21,7 +21,11 @@
   blocker in the cluster's replica processes, each of which must run a
   `dgraph_tpu_torch` module. Last, a GraphQL schema uploaded through the
   HTTP front's `/admin/schema/graphql` takes a GraphQL mutation and
-  answers a GraphQL query and a `/graphql` request.
+  answers a GraphQL query and a `/graphql` request; the gRPC front
+  answers `client_grpc` with the port's own protocol module, and a mesh
+  of two host shards answers `sharded_membership`. Then the command line
+  (`python -m dgraph_tpu_torch --device cpu`) bulk-loads a data dir and
+  `debug` reads it back, in an interpreter with the same blocker.
 - Every module the port copied from the reference equals it but for the
   rebinding of `dgraph_tpu` to `dgraph_tpu_torch` and for citations of
   the upstream Go sources, written `dgraph/<path>` in the port; the
@@ -53,6 +57,7 @@ PORTED = {
     "ops/member_sweep.py",
     "ops/setops.py",
     "ops/vector_topk.py",
+    "parallel/mesh.py",
     "query/dispatch.py",
 }
 # copies with a repair: (module, top-level function or Class.method)
@@ -73,6 +78,12 @@ REPAIRED = {
     # does, and build their vector indexes on it
     "worker/groups.py": ["DistributedCluster.__init__", "DistributedCluster.alter"],
     "worker/harness.py": ["ProcCluster.__init__"],
+    # the command line takes the device (`--device`, cuda by default) and
+    # hands it to every engine it builds
+    "cli.py": ["_server", "cmd_alpha", "cmd_explain", "main"],
+    # the protocol module loads as this package's own, not as a top-level
+    # `api_pb2` that the reference may already have loaded
+    "protos/__init__.py": ["load_api_pb2"],
 }
 
 
@@ -128,6 +139,7 @@ class Block:
             raise ImportError("blocked: " + name)
 
 sys.meta_path.insert(0, Block())
+import numpy as np
 from dgraph_tpu_torch.api.server import Server
 from dgraph_tpu_torch.query import dispatch
 
@@ -255,6 +267,21 @@ try:
 finally:
     srv.stop()
 print(json.dumps([added, direct, served]))
+from dgraph_tpu_torch.api.grpc_server import pb, serve
+from dgraph_tpu_torch.client_grpc import DgraphClient, DgraphClientStub
+from dgraph_tpu_torch.parallel import mesh as pmesh
+gs, gport = serve(b)
+stub = DgraphClientStub(f"127.0.0.1:{gport}")
+try:
+    over_grpc = DgraphClient(stub).txn(read_only=True).query('{ q(func: has(name)) { uid name } }')
+finally:
+    stub.close()
+    gs.stop(0)
+pmesh.HOST_WIDTH = 2
+m = pmesh.make_mesh(device="cpu")
+mask = pmesh.sharded_membership(m, np.array([1, 3, 5, 7], np.uint32), 3,
+                                np.array([3, 7, 9, 0xFFFFFFFF], np.uint32), 3)
+print(json.dumps([over_grpc, pb.__name__, m.size, mask.tolist()]))
 print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "dgraph_tpu")))
 """
 
@@ -281,8 +308,8 @@ def test_runs_with_jax_and_reference_blocked(tmp_path):
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
     )
     assert got.returncode == 0, got.stderr[-3000:]
-    lines = got.stdout.strip().splitlines()[-8:]
-    data, similar, restart, front, ops, cluster, graphql, mods = lines
+    lines = got.stdout.strip().splitlines()[-9:]
+    data, similar, restart, front, ops, cluster, graphql, grpc_mesh, mods = lines
     assert json.loads(data) == {
         "q": [{"friend": [{"uid": "0x3"}, {"uid": "0x100000004"}]}]
     }
@@ -318,7 +345,23 @@ def test_runs_with_jax_and_reference_blocked(tmp_path):
     assert added == {"data": {"addPerson": {"numUids": 2}}}
     assert direct == {"data": {"queryPerson": [{"name": "b"}]}}
     assert served == {"data": {"queryPerson": [{"name": "a"}, {"name": "b"}]}}
+    over_grpc, pb_name, mesh_size, mask = json.loads(grpc_mesh)
+    assert over_grpc == bulk
+    assert pb_name == "dgraph_tpu_torch.protos.api_pb2"
+    assert mesh_size == 2 and mask == [False, True, False, False]
     assert mods == "[]"
+    # the command line, in an interpreter that has the blocker too
+    pdir = str(tmp_path / "p")
+    for args in (["bulk", "-p", pdir, "--schema", str(tmp_path / "schema.txt"),
+                  str(tmp_path / "data.rdf")], ["debug", "-p", pdir]):
+        (tmp_path / "schema.txt").write_text("name: string @index(exact) .\n")
+        (tmp_path / "data.rdf").write_text('<0x1> <name> "a" .\n')
+        cli = subprocess.run(
+            [sys.executable, "-m", "dgraph_tpu_torch", "--device", "cpu", *args],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+        )
+        assert cli.returncode == 0, cli.stderr[-3000:]
+    assert json.loads(cli.stdout) == {"name": {"data": 1, "index": 1, "schema": 1}}
 
 
 def _without(source, names):
@@ -343,7 +386,7 @@ def _without(source, names):
 
 
 COPIES = [
-    r for r in _port_files((".py", ".cpp"))
+    r for r in _port_files((".py", ".cpp", ".proto"))
     if r not in PORTED and os.path.exists(os.path.join(REF, r))
 ]
 

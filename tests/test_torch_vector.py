@@ -397,16 +397,6 @@ def test_quantized_engine_equals_reference(monkeypatch, ivf_threshold):
     np.testing.assert_array_equal(port.search(V[6], 3), ref.search(V[6], 3))
 
 
-def test_shard_vectors_raises(monkeypatch, float_paths):
-    monkeypatch.setenv("DGRAPH_TPU_SHARD_VECTORS", "1")
-    idx = vector.VectorIndex("emb", device="cpu")
-    idx.insert(1, [1.0, 2.0])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        idx.search([1.0, 2.0], 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        idx.search_batch(np.ones((2, 2), np.float32), 1)
-
-
 def test_cuda_index_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
