@@ -320,35 +320,87 @@ def extract(name, data):
 # ---------------------------------------------------------------------------
 
 
-class _Capture:
-    """Keeps the largest set of member-sweep inputs the main path hands
-    the wrapper and the first of each shape (n, pa, pb), cloned,
-    delegating every call unchanged."""
+def _shape_key(args):
+    """(n, pa, pb, "shared" or "paired") of a set op's (A, LA, B, LB);
+    (n, pa) of a compaction's (A, keep)."""
+    A = args[0]
+    if len(args) == 2:
+        return (int(A.shape[0]), int(A.shape[1]))
+    B = args[2]
+    return (int(A.shape[0]), int(A.shape[1]), int(B.shape[-1]),
+            "shared" if B.dim() == 1 else "paired")
 
-    def __init__(self, member_sweep):
-        self.ms = member_sweep
-        self.real = member_sweep.membership_batch
+
+class _Capture:
+    """Keeps, of the inputs the main path hands the named wrappers of a
+    kernel module (K1's `membership_batch` by default), the first of each
+    shape, cloned, and the largest set, delegating every call unchanged.
+    With several names, a shape's key starts with the wrapper's name."""
+
+    def __init__(self, module, names=("membership_batch",)):
+        self.module = module
+        self.real = {n: getattr(module, n) for n in names}
+        self.tagged = len(names) > 1
         self.args = None
         self.shapes = []
         self.by_shape = {}
 
-    def __call__(self, A, LA, B, LB):
-        shape = (int(A.shape[0]), int(A.shape[1]), int(B.shape[1]))
-        self.shapes.append(shape)
-        if shape not in self.by_shape:
-            self.by_shape[shape] = tuple(t.clone() for t in (A, LA, B, LB))
-        if self.args is None or A.numel() + B.numel() > sum(
-            t.numel() for t in self.args[::2]
-        ):
-            self.args = self.by_shape[shape]  # sizes follow the shape
-        return self.real(A, LA, B, LB)
+    def _wrap(self, name):
+        real = self.real[name]
+
+        def call(*args):
+            key = _shape_key(args)
+            key = (name,) + key if self.tagged else key
+            self.shapes.append(key)
+            if key not in self.by_shape:
+                self.by_shape[key] = tuple(t.clone() for t in args)
+            if self.args is None or args[0].numel() + args[-2].numel() > (
+                self.args[0].numel() + self.args[-2].numel()
+            ):
+                self.args = self.by_shape[key]  # sizes follow the shape
+            return real(*args)
+
+        return call
 
     def __enter__(self):
-        self.ms.membership_batch = self
+        for n in self.real:
+            setattr(self.module, n, self._wrap(n))
         return self
 
     def __exit__(self, *exc):
-        self.ms.membership_batch = self.real
+        for n, fn in self.real.items():
+            setattr(self.module, n, fn)
+
+
+SETOP_WRAPPERS = ("intersect_batch", "difference_batch", "compact_batch")
+
+
+class _Copies:
+    """Counts the bytes the dispatcher copies to the card (`_stage`) and
+    back (`_fetch`), delegating every call unchanged."""
+
+    def __enter__(self):
+        from dgraph_tpu_torch.query import dispatch
+
+        self.d, self.up, self.down = dispatch, 0, 0
+        self.real = dispatch._stage, dispatch._fetch
+
+        def stage(dev, parts):
+            self.up += sum(np.asarray(p).nbytes for p in parts)
+            return self.real[0](dev, parts)
+
+        def fetch(tensors):
+            self.down += sum(t.numel() * t.element_size() for t in tensors)
+            return self.real[1](tensors)
+
+        dispatch._stage, dispatch._fetch = stage, fetch
+        return self
+
+    def __exit__(self, *exc):
+        self.d._stage, self.d._fetch = self.real
+
+    def bytes(self):
+        return self.up, self.down
 
 
 def _run_query(server, q):
@@ -418,7 +470,7 @@ def serve(device="cuda", fanout=100, pool=200_000, reps=3, log=print, profile=()
     import torch
 
     from dgraph_tpu_torch.api.server import Server
-    from dgraph_tpu_torch.ops import member_sweep
+    from dgraph_tpu_torch.ops import member_sweep, setop_rows
     from dgraph_tpu_torch.query import dispatch
 
     on_card = torch.device(device).type == "cuda"
@@ -435,6 +487,9 @@ def serve(device="cuda", fanout=100, pool=200_000, reps=3, log=print, profile=()
     def count():
         return member_sweep.LAUNCHES if on_card else member_sweep.PLAIN_CALLS
 
+    def setop_count():
+        return setop_rows.LAUNCHES if on_card else setop_rows.PLAIN_CALLS
+
     out = {"load_s": load_s, "n_quads": nq, "queries": {}}
     with forced_device():
         if on_card:
@@ -442,23 +497,35 @@ def serve(device="cuda", fanout=100, pool=200_000, reps=3, log=print, profile=()
             torch.cuda.reset_peak_memory_stats()
         # the counted run: each query once, counts zeroed just before
         member_sweep.LAUNCHES = member_sweep.PLAIN_CALLS = 0
+        setop_rows.LAUNCHES = setop_rows.PLAIN_CALLS = 0
         answers = {}
-        per_query = {}
-        with _Capture(member_sweep) as cap:
+        per_query, setop_per_query, copies = {}, {}, {}
+        with _Capture(member_sweep) as cap, _Capture(setop_rows, SETOP_WRAPPERS) as scap, \
+                _Copies() as cp:
             for name, q in QUERIES.items():
-                c0 = count()
+                c0, s0, b0 = count(), setop_count(), cp.bytes()
                 answers[name] = _run_query(server, q)
                 per_query[name] = count() - c0
+                setop_per_query[name] = setop_count() - s0
+                copies[name] = {"cold": [b - a for a, b in zip(b0, cp.bytes())]}
         out["launches"] = member_sweep.LAUNCHES
         out["plain_calls"] = member_sweep.PLAIN_CALLS
+        out["setop_launches"] = setop_rows.LAUNCHES
         out["sweep_per_query"] = per_query
+        out["setop_per_query"] = setop_per_query
         out["sweep_shapes"] = sorted(set(cap.shapes))
         out["captured"] = cap.args
+        out["setop_captured"] = scap.by_shape
+        # bytes (to the card, back) of each query's first and of a warm read
+        out["copies"] = copies
         if on_card:
             out["peak_bytes"] = torch.cuda.max_memory_allocated()
         out["device_cache"] = dispatch.DISPATCHER.device_cache.stats()
         out["answers"] = answers
         for name, q in QUERIES.items():
+            with _Copies() as cp:  # one warm read's copies
+                _run_query(server, q)
+            copies[name]["warm"] = list(cp.bytes())
             ms_dev = []
             for _ in range(reps):
                 t = time.perf_counter()
@@ -607,11 +674,25 @@ def _to_i64(x):
 
 def sorted_keys(B, LB):
     """B's rows as int64 u32 values with 2^32 past LB: sorted over the full
-    width whatever the padding, for torch.searchsorted."""
+    width whatever the padding, for torch.searchsorted. A shared B (pb,)
+    gives one row (1, pb)."""
     import torch
 
-    cols = torch.arange(B.shape[1], device=B.device)
+    cols = torch.arange(B.shape[-1], device=B.device)
     return torch.where(cols < LB.unsqueeze(1), _to_i64(B), 1 << 32)
+
+
+def _search(key, q):
+    """(position of each q in its row of key, the key there): a key of
+    one row serves every row of q."""
+    import torch
+
+    pb = key.shape[1]
+    if key.shape[0] == 1:
+        p = torch.searchsorted(key[0], q)
+        return p, key[0][p.clamp(max=pb - 1)]
+    p = torch.searchsorted(key, q)
+    return p, torch.gather(key, 1, p.clamp(max=pb - 1))
 
 
 def library_membership(A64, LA, Bkey, LB):
@@ -619,43 +700,48 @@ def library_membership(A64, LA, Bkey, LB):
     timed here and called nowhere in the port. Bkey from sorted_keys."""
     import torch
 
-    idx = torch.searchsorted(Bkey, A64)
-    pb = Bkey.shape[1]
-    hit = (idx < LB.unsqueeze(1)) & (
-        torch.gather(Bkey, 1, idx.clamp(max=pb - 1)) == A64
-    )
+    idx, at = _search(Bkey, A64)
+    hit = (idx < LB.unsqueeze(1)) & (at == A64)
     return hit & (torch.arange(A64.shape[1], device=A64.device) < LA.unsqueeze(1))
 
 
 def sweep_bound_ms(A, LA, B, LB):
     """Least time any correct method could take on these sorted rows, in
-    ms, and what bounds it. Bytes: A's valid elements, 8 per row for LA
-    and LB, the n * pa mask, and every distinct 32-byte sector of B that
+    ms, and what bounds it. Bytes: A's valid elements, LA, LB (one length
+    for a shared B), the n * pa mask, and every distinct 32-byte sector of B that
     holds, for a valid query, its equal element or, where B has none, its
     neighbours in the valid prefix (no method can answer the query without
     them), all at the card's memory rate. Compares are left out: the
     fewest any method needs, about LA * log2(LB / LA + 1) per row, at most
     32 per query, take less time at 67 T/s than the query's own 4 bytes of
     A take at 3.35 TB/s. So the bound is always the bytes."""
+    n, pa = A.shape
+    nbytes = 4 * int(LA.sum()) + 4 * n + 4 * LB.numel() + n * pa
+    return (nbytes + b_sector_bytes(A, LA, B, LB)) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def b_sector_bytes(A, LA, B, LB):
+    """The bytes of B any correct membership method must read: every
+    distinct 32-byte sector that holds, for a valid query of A, its equal
+    element or, where B has none, its neighbours in the valid prefix. A
+    shared B (pb,) counts its sectors once for all rows."""
     import torch
 
     n, pa = A.shape
-    pb = B.shape[1]
-    la = LA.to(torch.int64)
-    nbytes = 4 * int(la.sum()) + 8 * n + n * pa
-    if pb and n:
-        lb = LB.to(torch.int64).unsqueeze(1)
-        key = sorted_keys(B, LB)
-        q = _to_i64(A)
-        p = torch.searchsorted(key, q)
-        eq = (p < lb) & (torch.gather(key, 1, p.clamp(max=pb - 1)) == q)
-        valid = torch.arange(pa, device=A.device) < la.unsqueeze(1)
-        row0 = torch.arange(n, device=A.device).unsqueeze(1) * pb
-        at = torch.where(valid & (eq | (p < lb)), row0 + p, -1)  # equal or next
-        before = torch.where(valid & ~eq & (p > 0), row0 + p - 1, -1)
-        elems = torch.cat([at[at >= 0], before[before >= 0]])
-        nbytes += 32 * int(torch.unique(elems // 8).numel())  # B 32-byte aligned
-    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+    pb = B.shape[-1]
+    if not (pb and n):
+        return 0
+    lb = LB.to(torch.int64).unsqueeze(1)
+    key = sorted_keys(B, LB)
+    q = _to_i64(A)
+    p, at_p = _search(key, q)
+    eq = (p < lb) & (at_p == q)
+    valid = torch.arange(pa, device=A.device) < LA.to(torch.int64).unsqueeze(1)
+    row0 = 0 if B.dim() == 1 else torch.arange(n, device=A.device).unsqueeze(1) * pb
+    at = torch.where(valid & (eq | (p < lb)), row0 + p, -1)  # equal or next
+    before = torch.where(valid & ~eq & (p > 0), row0 + p - 1, -1)
+    elems = torch.cat([at[at >= 0], before[before >= 0]])
+    return 32 * int(torch.unique(elems // 8).numel())  # B 32-byte aligned
 
 
 def all_of_b_ms(A, LA, B, LB):
@@ -815,7 +901,7 @@ def check_sorted(A, LA, B, LB):
     within its length. Raises on the first row that is not."""
     import torch
 
-    for name, X, L in (("A", A, LA), ("B", B, LB)):
+    for name, X, L in (("A", A, LA), ("B", B if B.dim() == 2 else B[None], LB)):
         if X.shape[1] < 2:
             continue
         x = _to_i64(X)
@@ -824,6 +910,257 @@ def check_sorted(A, LA, B, LB):
         if bool(bad.any()):
             raise AssertionError(f"main-path {name} row {int(bad.nonzero()[0, 0])} "
                                  "is not sorted as uint32")
+
+
+# ---------------------------------------------------------------------------
+# K2 + K3: setop_rows against its plain version
+# ---------------------------------------------------------------------------
+
+# row kinds of setop_rows_case: "random" draws about half of A from b;
+# "all" takes all of A from b, "none" none of it; "max" ends every valid
+# row of A and b with UINT32_MAX, a real uid there; "sign" draws every
+# value within 4096 of 2^31 (a signed compare fails); "la0" and "lb0"
+# empty every other row of A or of b
+SETOP_KINDS = ("random", "all", "none", "max", "sign", "la0", "lb0")
+
+
+def setop_rows_case(n, pa, pb, seed, kind="random", shared=False):
+    """Sorted rows for setop_rows, made with numpy from `seed`: A (n, pa)
+    against B (n, pb) with LB (n,), or against one B (pb,) with LB (1,)
+    when `shared`; uids as int32 bits, UINT32_MAX past each length."""
+    rng = np.random.default_rng(seed)
+    nb = 1 if shared else n
+    lo, hi = ((1 << 31) - 4096, (1 << 31) + 4096) if kind == "sign" else (0, 1 << 32)
+    B = np.sort(rng.integers(lo, hi, size=(nb, pb), dtype=np.uint64), axis=1)
+    LB = rng.integers(max(1, pb // 2), pb + 1, size=nb) if pb else np.zeros(nb, np.int64)
+    LA = rng.integers(0, pa + 1, size=n)
+    fresh = rng.integers(lo, hi, size=(n, pa), dtype=np.uint64)
+    if kind == "none":  # b even, A odd
+        B &= ~np.uint64(1)
+        fresh |= np.uint64(1)
+    rows = np.zeros(n, np.int64) if shared else np.arange(n)
+    lbr = LB[rows]
+    pick = rng.integers(0, 1 << 62, size=(n, pa)) % np.maximum(lbr, 1)[:, None]
+    from_b = B[rows[:, None], pick] if pb else fresh
+    coin = rng.random((n, pa)) < {"all": 2.0, "none": -1.0}.get(kind, 0.5)
+    A = np.sort(np.where(coin & (lbr[:, None] > 0), from_b, fresh), axis=1)
+    if kind in ("all", "none", "max"):
+        LA[:] = pa
+    if kind == "la0":
+        LA[::2] = 0
+    if kind == "lb0":
+        LB[::2] = 0
+    if kind == "max":
+        live = LB > 0
+        B[np.flatnonzero(live), LB[live] - 1] = U32
+        A[:, -1] = U32
+    B = np.where(np.arange(pb) < LB[:, None], B, U32)
+    A = np.where(np.arange(pa) < LA[:, None], A, U32)
+
+    def bits(x):
+        return np.ascontiguousarray(x.astype(np.uint32)).view(np.int32)
+
+    B = bits(B[0] if shared else B)
+    return bits(A), LA.astype(np.int32), B, LB.astype(np.int32)
+
+
+def setop_plain(name):
+    """The plain PyTorch version of setop_rows wrapper `name`."""
+    from dgraph_tpu_torch.ops import setop_rows
+
+    if name == "compact_batch":
+        return setop_rows.compact_batch_plain
+    return lambda *args: setop_rows.setop_batch_plain(name.split("_")[0], *args)
+
+
+def library_setop(name, *args):
+    """The yardstick, timed here and called nowhere in the port: one
+    torch.isin and one torch.masked_select over the same rows (a b per
+    row searched as keys row * 2^32 + uid, made beforehand). Returns the
+    call; it gives the kept uids of every row, flat."""
+    import torch
+
+    if name == "compact_batch":
+        A, keep = args
+        return lambda: torch.masked_select(A, keep)
+    A, LA, B, LB = args
+    n, pa = A.shape
+    valid = torch.arange(pa, device=A.device) < LA.unsqueeze(1)
+    if B.dim() == 1:
+        a, b = _to_i64(A), _to_i64(B)[: int(LB[0])]
+    else:
+        rows = (torch.arange(n, device=A.device) << 32).unsqueeze(1)
+        a = _to_i64(A) + rows
+        b = (_to_i64(B) + rows)[torch.arange(B.shape[1], device=B.device) < LB.unsqueeze(1)]
+    invert = name == "difference_batch"
+    return lambda: torch.masked_select(A, valid & torch.isin(a, b, invert=invert))
+
+
+def setop_bound_ms(name, args):
+    """Least time any correct method could take, in ms, and what bounds
+    it: the bytes. Read once: A's valid elements, LA and LB, and the
+    sectors of B a membership needs (b_sector_bytes), or for a
+    compaction the keep mask and the kept elements; written once: the
+    n * pa output words and the n counts. The compares, about log2(LB)
+    an element, take less time at 67 T/s than its 4 bytes at 3.35 TB/s."""
+    A = args[0]
+    n, pa = A.shape
+    nbytes = 4 * n * pa + 4 * n
+    if name == "compact_batch":
+        nbytes += n * pa + 4 * int(args[1].sum())
+    else:
+        A, LA, B, LB = args
+        nbytes += (4 * int(LA.clamp(0, pa).sum()) + 4 * n + 4 * LB.numel()
+                   + b_sector_bytes(A, LA, B, LB))
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def measure_setop(name, args, reps=5, timed=True):
+    """setop_rows wrapper `name` against its plain version on `args`
+    (exact: mismatching words of out and cnt), and with `timed` the
+    kernel (events), device (trace), plain and library times and the
+    bound, in ms."""
+    import torch
+
+    from dgraph_tpu_torch.ops import setop_rows
+
+    fn, plain = getattr(setop_rows, name), setop_plain(name)
+    got, want = fn(*args), plain(*args)
+    torch.cuda.synchronize()
+    n, pa = args[0].shape
+    errs = [(_to_i64(g) - _to_i64(w)).abs() for g, w in zip(got, want)]
+    r = {"mismatches": int((got[0] != want[0]).sum()) + int((got[1] != want[1]).sum()),
+         "max_abs_err": float(max([float(e.max()) for e in errs if e.numel()] + [0.0]))}
+    if not timed:
+        return r
+    lib = library_setop(name, *args)
+    kept = want[0][torch.arange(pa, device=want[0].device) < want[1].unsqueeze(1)]
+    bound, bound_by = setop_bound_ms(name, args)
+    r.update({
+        "library_agrees": bool(torch.equal(lib(), kept)),
+        "ms": _events_ms(lambda: fn(*args), reps),
+        "device_ms": kernel_device_ms(lambda: fn(*args), name=setop_rows.kernel_names(pa)),
+        "device_trace": dict(LAST_TRACE),
+        "plain_ms": _events_ms(lambda: plain(*args), max(3, reps // 2)),
+        "library_ms": _events_ms(lib, reps),
+        "bound_ms": bound,
+        "bound_by": bound_by,
+    })
+    return r
+
+
+# (n, pa, pb) of the timed grid: (b)'s sub-rows against one segment's
+# filter, bucketed rows of one chunk and of three passes, and (d)'s long
+# rows against a long b
+SETOP_GRID = [(20000, 64, 1024), (4096, 128, 65536), (1000, 129, 4096), (64, 4096, 65536),
+              (2, 1 << 17, 1 << 17), (1, 1 << 20, 1 << 20)]
+# (n, pa, pb) of the row kinds' check: one query a row, one chunk, three
+# passes, two long rows
+SETOP_EDGE_SHAPES = [(1000, 1, 64), (1000, 8, 1024), (300, 129, 2000), (2, 1 << 17, 1 << 17)]
+
+
+def setop_grid(device="cuda", log=print):
+    """setop_rows against its plain version, exactly: every wrapper, both
+    forms of B, every row kind of SETOP_KINDS at two shapes, timed on
+    random rows at every shape of SETOP_GRID; then K1 with a shared B
+    (stride 0); then the forced-device dispatcher over rows across 2^32
+    against numpy."""
+    import torch
+
+    from dgraph_tpu_torch.ops import member_sweep
+
+    def tensors(case):
+        return [torch.from_numpy(x).to(device) for x in case]
+
+    for shared in (False, True):
+        for kind in SETOP_KINDS:
+            for n, pa, pb in SETOP_EDGE_SHAPES:
+                args = tensors(setop_rows_case(n, pa, pb, seed=pa + pb, kind=kind, shared=shared))
+                for name in ("intersect_batch", "difference_batch"):
+                    if measure_setop(name, args, timed=False)["mismatches"]:
+                        raise AssertionError(f"{name} {kind} {shared} {(n, pa, pb)}: != plain")
+    log(f"edge rows: intersect and difference equal to plain over {len(SETOP_KINDS)} row "
+        f"kinds x (n, pa, pb) {SETOP_EDGE_SHAPES} x (paired, shared)")
+    for n, pa, pb in SETOP_GRID:
+        for shared in (False, True):
+            args = tensors(setop_rows_case(n, pa, pb, seed=n + pa + pb, shared=shared))
+            keep = torch.rand(args[0].shape, device=device,
+                              generator=torch.Generator(device).manual_seed(pa)) < 0.5
+            form = "shared" if shared else "paired"
+            for name in ("intersect_batch", "difference_batch") + (("compact_batch",) * shared):
+                r = measure_setop(name, (args[0], keep) if name == "compact_batch" else args)
+                if r["mismatches"] or not r["library_agrees"]:
+                    raise AssertionError(f"{name} {form} {(n, pa, pb)}: {r}")
+                log(f"{name} {form} n={n} pa={pa} pb={pb}: equal; " + _fmt(r))
+            del args, keep
+    for kind in ("random", "max", "lb0"):
+        args = tensors(setop_rows_case(20000, 64, 1024, seed=5, kind=kind, shared=True))
+        if not torch.equal(member_sweep.membership_batch(*args),
+                           member_sweep.membership_batch_plain(*args)):
+            raise AssertionError(f"K1 with a shared B ({kind}) != plain")
+    log("K1 with a shared B (stride 0), n=20000 pa=64 pb=1024: equal to plain")
+    log(dispatcher_across_segments(device))
+
+
+def dispatcher_across_segments(device="cuda", seed=4):
+    """The forced-device dispatcher's three entries over rows with uids on
+    both sides of 2^32, against numpy: rows of <= 128 a segment (K1 and
+    its compaction) and longer ones (setop_rows, shared b), and a bucket
+    of pairs (setop_rows, a b per row)."""
+    from dgraph_tpu_torch.query import dispatch
+
+    rng = np.random.default_rng(seed)
+
+    def straddle(k, width=4000):
+        return np.union1d(rng.integers(SEG - width, SEG, size=k // 2, dtype=np.uint64),
+                          rng.integers(SEG, SEG + width, size=k - k // 2, dtype=np.uint64))
+
+    d = dispatch.SetOpDispatcher(device=device)
+    with forced_device():
+        for op, np_op in (("intersect", np.intersect1d), ("difference", np.setdiff1d)):
+            for width in (80, 900):
+                rows = [straddle(int(k)) for k in rng.integers(0, 2 * width, size=300)]
+                b = straddle(3000)
+                flat = np.concatenate(rows).astype(np.uint64)
+                offs = np.zeros(len(rows) + 1, np.int64)
+                np.cumsum([len(r) for r in rows], out=offs[1:])
+                want = [np_op(r, b, assume_unique=True) for r in rows]
+                got, got_offs = d.run_rows_vs_one_ragged(op, flat, offs, b)
+                if not (np.array_equal(got, np.concatenate(want))
+                        and np.array_equal(np.diff(got_offs), [len(w) for w in want])):
+                    raise AssertionError(f"dispatcher {op} ragged rows of {width} != numpy")
+                for g, w in zip(d.run_rows_vs_one(op, rows, b), want):
+                    if not np.array_equal(g, w):
+                        raise AssertionError(f"dispatcher {op} rows of {width} != numpy")
+            pairs = [(straddle(20000), straddle(15000)) for _ in range(3)]
+            for (a, b), g in zip(pairs, d.run_pairs(op, pairs)):
+                if not np.array_equal(g, np_op(a, b, assume_unique=True)):
+                    raise AssertionError(f"dispatcher {op} pairs != numpy")
+    return ("dispatcher over rows across 2^32 (ragged, list, pairs; intersect and "
+            "difference): equal to numpy")
+
+
+def setop_served(by_shape, log=print):
+    """setop_rows against its plain version, exactly, on the inputs of
+    every shape the main path gave each wrapper, and timed on the
+    heaviest of each wrapper. Returns {wrapper: measurement}."""
+    out = {}
+    for key, args in sorted(by_shape.items(), key=str):
+        name = key[0]
+        r = measure_setop(name, args, timed=False)
+        if r["mismatches"]:
+            raise AssertionError(f"main-path {key}: kernel != plain ({r})")
+        if name not in out or setop_bound_ms(name, args)[0] > setop_bound_ms(name, out[name][1])[0]:
+            out[name] = (key, args)
+    log(f"equal to plain at every shape it took: {sorted(by_shape, key=str)}")
+    res = {}
+    for name, (key, args) in out.items():
+        res[name] = measure_setop(name, args)
+        res[name]["shape"] = key[1:]
+        if not res[name]["library_agrees"]:
+            raise AssertionError(f"main-path {key}: library != plain")
+        log(f"{name} at {key[1:]} (served): " + _fmt(res[name]))
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1831,7 +2168,7 @@ def serve_writes(device, data_dir, V, Q, fanout=100, pool=200_000,
             got = member_sweep.membership_batch(A, LA, B, LB)
             if not torch.equal(got, member_sweep.membership_batch_plain(A, LA, B, LB)):
                 raise AssertionError("(u2): K1 != plain on the upsert's inputs")
-            out["u2"]["sweep_shape"] = tuple(A.shape) + (B.shape[1],)
+            out["u2"]["sweep_shape"] = _shape_key((A, LA, B, LB))
         log(f"(u2) fan-out upsert in {out['u2']['s']:.3f}s marked {out['u2']['marked']} "
             f"hot nodes (== numpy), member sweep {out['u2']['sweeps']} launches, equal to "
             f"plain on its inputs {out['u2'].get('sweep_shape')}")
@@ -4548,7 +4885,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; nothing was run", file=sys.stderr)
         return 2
-    from dgraph_tpu_torch.ops import cuda_build
+    from dgraph_tpu_torch.ops import cuda_build, setop_rows
     from dgraph_tpu_torch.x import config
 
     t_start = time.perf_counter()
@@ -4589,6 +4926,10 @@ def main(argv=None) -> int:
     print("[3] member sweep vs plain (exact), times in ms at " + card, flush=True)
     sweep_edge_cases()
     sweep_grid()
+    t0 = time.perf_counter()
+    print("[3b] setop_rows (K2 + K3) vs plain (exact), times in ms at " + card, flush=True)
+    setop_grid(log=lambda m: print("    " + m, flush=True))
+    print(f"    [3b] {time.perf_counter() - t0:.3f}s", flush=True)
 
     print("[4] serving the fan-out graph on the card", flush=True)
     s = serve("cuda", log=lambda m: print("    " + m, flush=True),
@@ -4598,11 +4939,16 @@ def main(argv=None) -> int:
               f"{r['host_ms']:.3f} ms (warm medians), {r['bytes']} bytes; "
               "device == host == numpy", flush=True)
     print(f"    member sweep launches per query {s['sweep_per_query']}, shapes "
-          f"(n, pa, pb) {s['sweep_shapes']}", flush=True)
+          f"(n, pa, pb) {s['sweep_shapes']}; setop_rows launches per query "
+          f"{s['setop_per_query']}; dispatcher copies (to the card, back) in bytes "
+          f"{s['copies']}", flush=True)
     print(f"    device memory peak {s['peak_bytes']} bytes; DeviceCache "
           f"{s['device_cache']}", flush=True)
     if s["sweep_per_query"]["b"] < 1:
         raise AssertionError("the member sweep did not launch during query (b)")
+    if min(s["setop_per_query"][q] for q in "bcd") < 1:
+        raise AssertionError(f"setop_rows did not launch in (b), (c) and (d): "
+                             f"{s['setop_per_query']}")
 
     print("[5] member sweep on the main path's inputs", flush=True)
     A, LA, B, LB = s["captured"]
@@ -4610,10 +4956,20 @@ def main(argv=None) -> int:
     main = measure_sweep(A, LA, B, LB)
     if main["mismatches"]:
         raise AssertionError(f"main-path inputs: kernel != plain: {main}")
-    print(f"    n={A.shape[0]} pa={A.shape[1]} pb={B.shape[1]}: rows sorted as "
+    print(f"    {_shape_key((A, LA, B, LB))}: rows sorted as "
           f"uint32; equal; {_fmt(main)}; all-of-B byte time "
           f"{all_of_b_ms(A, LA, B, LB):.6f}; rows {main['regimes']}", flush=True)
     del s["captured"], A, LA, B, LB
+    setop_main = setop_served(s.pop("setop_captured"), log=lambda m: print("    " + m, flush=True))
+    # setop_rows launches of each later path, its count zeroed just before
+    setop_paths = {"4": s["setop_launches"]}
+
+    def setop_counted(path, fn, *a, **kw):
+        setop_rows.LAUNCHES = 0
+        try:
+            return fn(*a, **kw)
+        finally:
+            setop_paths[path] = setop_paths.get(path, 0) + setop_rows.LAUNCHES
     print(f"    total {time.perf_counter() - t_start:.3f}s", flush=True)
 
     print("[6] vector kernels vs plain (KV1 bitwise, KV2 within tolerance), times in "
@@ -4657,9 +5013,9 @@ def main(argv=None) -> int:
                 arm_V = small_V if arm == "mem" else small_V[:LSM_VECTORS]
                 print(f"    [{arm}] DGRAPH_TPU_STORAGE={arm}, data_dir {d}, {len(arm_V)} "
                       "vectors", flush=True)
-                writes[arm] = serve_writes("cuda", d, arm_V, all_Q, upserts_per_thread=250,
-                                           transfers_per_thread=125,
-                                           log=lambda m: print("      " + m, flush=True))
+                writes[arm] = setop_counted(f"8 {arm}", serve_writes, "cuda", d, arm_V, all_Q,
+                                            upserts_per_thread=250, transfers_per_thread=125,
+                                            log=lambda m: print("      " + m, flush=True))
         finally:
             config.unset_env("STORAGE")
     for arm, w in writes.items():
@@ -4677,14 +5033,16 @@ def main(argv=None) -> int:
           "at " + card, flush=True)
     # phase 12 serves both servers again after phase 9
     gserver, graph, vserver = s.pop("server"), s.pop("graph"), v.pop("server")
-    front = {"graph": front_graph(gserver, graph, log=lambda m: print("    " + m, flush=True))}
+    front = {"graph": setop_counted("9", front_graph, gserver, graph,
+                                    log=lambda m: print("    " + m, flush=True))}
     bad = {k: n for k, n in sweep_shapes_equal(front["graph"]["sweep_shapes"]).items() if n}
     if bad:
         raise AssertionError(f"(9) K1 != plain at shapes (n, pa, pb): {bad}")
     print(f"    K1 launches {front['graph']['sweeps']}, equal to plain at every shape "
           f"(n, pa, pb) it took: {sorted(front['graph'].pop('sweep_shapes'))}", flush=True)
     # (9a) at 32 reads a client (64 before phase 11), for the time limit
-    front["vectors"] = front_vectors(vserver, all_Q, named=v["named"], per_client=32,
+    front["vectors"] = setop_counted("9", front_vectors, vserver, all_Q, named=v["named"],
+                                     per_client=32,
                                      log=lambda m: print("    " + m, flush=True))
     launches9 = front["vectors"]["launches"]
     if min(launches9.values()) < 1:
@@ -4698,16 +5056,17 @@ def main(argv=None) -> int:
 
     edge = [tuple(int(u, 16) for u in front["graph"]["result_cache"]["edge"])]
     exact = v.pop("exact")
-    gq = graphql_phase(gserver, graph, vserver, small_V, all_Q, v["named"], exact, edge,
-                       card, t_start)
+    gq = setop_counted("12", graphql_phase, gserver, graph, vserver, small_V, all_Q, v["named"],
+                       exact, edge, card, t_start)
     del gserver, vserver
-    p13 = cli_and_mesh_phase(graph, s.pop("answers"), v.pop("V"), all_Q, exact, small_V, card,
-                             t_start)
+    p13 = setop_counted("13", cli_and_mesh_phase, graph, s.pop("answers"), v.pop("V"), all_Q,
+                        exact, small_V, card, t_start)
     del graph
 
-    ops = data_in_and_out(small_V[:OPS_VECTORS].copy(), all_Q, writes["mem"]["load"]["per_s"],
-                          card, t_start)
-    cl = cluster_phase(small_V[:CLUSTER_VECTORS].copy(), all_Q, card, t_start)
+    ops = setop_counted("10", data_in_and_out, small_V[:OPS_VECTORS].copy(), all_Q,
+                        writes["mem"]["load"]["per_s"], card, t_start)
+    cl = setop_counted("11", cluster_phase, small_V[:CLUSTER_VECTORS].copy(), all_Q, card,
+                       t_start)
     del small_V, all_Q
 
     print(f"    traces short after phase 6 (kernel, calls traced, calls made, lost "
@@ -4760,6 +5119,14 @@ def main(argv=None) -> int:
             **{key: r[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")},
         })
+    heavy = max(setop_main.values(), key=lambda r: r["bound_ms"])
+    rows.append({
+        "name": "setop_rows", "route": "cuda", "source": "dgraph_tpu_torch/csrc/setop_rows.cu",
+        "replaces": "dgraph_tpu/ops/setops.py:87", "launches": sum(setop_paths.values()),
+        "launches_by_path": setop_paths,
+        **{key: heavy[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms")},
+    })
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

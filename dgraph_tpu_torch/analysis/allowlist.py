@@ -22,24 +22,6 @@ from dgraph_tpu_torch.analysis.core import Allow
 ALLOWLIST: List[Allow] = [
     # -- config-registry -----------------------------------------------------
     Allow(
-        "config-registry", "__init__.py", "raw-env-read",
-        "package __init__ seeds the JAX persistent-compile-cache env "
-        "BEFORE jax import; these are jax's knobs, not DGRAPH_TPU_* — "
-        "routing them through the registry would import-order-invert",
-    ),
-    Allow(
-        "config-registry", "devsetup.py", "raw-env-read",
-        "XLA_FLAGS / JAX_PLATFORMS are foreign runtime knobs owned by "
-        "jax; force_cpu() must read-modify-write them before the first "
-        "backend init",
-    ),
-    Allow(
-        "config-registry", "query/dispatch.py", "raw-env-read",
-        "JAX_PLATFORMS is jax's own platform pin; reading it is how the "
-        "dispatcher avoids initializing a backend just to learn it is "
-        "CPU",
-    ),
-    Allow(
         "config-registry", "worker/harness.py", "raw-env-read",
         "dict(os.environ) snapshots the WHOLE environment to inherit it "
         "into spawned alpha/zero replicas (incl. fault plans); "

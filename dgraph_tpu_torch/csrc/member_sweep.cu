@@ -7,9 +7,12 @@
 // this kernel searches instead.
 //
 // What it computes. For each row i of a bucket,
-//   hit[i, t] = t < LA[i]  and  A[i, t] occurs in B[i, :LB[i]]
-// with A (n, pa <= 128) and B (n, pb) holding uids in the 32-bit local
-// space as the bits of int32. Precondition (the reference's,
+//   hit[i, t] = t < LA[i]  and  A[i, t] occurs in b_i[:lb_i]
+// with A (n, pa <= 128) and b_i = B + i * b_stride, lb_i = LB[i * lb_step],
+// holding uids in the 32-bit local space as the bits of int32: B (n, pb)
+// with LB (n,) (b_stride pb, lb_step 1), or one b (pb,) shared by every
+// row with one length (b_stride 0, lb_step 0: the reference's
+// vmap(in_axes=(0, 0, None, None)) form). Precondition (the reference's,
 // pallas_setops.py:109-111): A[i, :LA[i]] and B[i, :LB[i]] are sorted
 // ascending as uint32; A may hold equal values, and every one of them is
 // marked. All compares are unsigned. Validity is judged by index against
@@ -220,16 +223,16 @@ member_sweep_kernel(const uint32_t* __restrict__ A,
                     const uint32_t* __restrict__ B,
                     const int32_t* __restrict__ LB,
                     uint8_t* __restrict__ hits,
-                    int n, int pa, int pb) {
+                    int n, int pa, int pb, int64_t b_stride, int lb_step) {
   __shared__ __align__(16) uint32_t smem[kWarps][kBuf];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int64_t row = (int64_t)blockIdx.x * kWarps + warp;
   if (row >= n) return;  // whole warp; no CTA-wide barrier follows
   const int la = min(max(LA[row], 0), pa);
-  const int lb = min(max(LB[row], 0), pb);
+  const int lb = min(max(LB[row * lb_step], 0), pb);
   const uint32_t* arow = A + row * pa;
-  const uint32_t* brow = B + row * (int64_t)pb;
+  const uint32_t* brow = B + row * b_stride;
 
   uint32_t q[kSlots];
   bool hit[kSlots];
@@ -271,17 +274,21 @@ member_sweep_kernel(const uint32_t* __restrict__ A,
 
 extern "C" {
 
-// hits: (n, pa) bytes, every one written by the kernel; pa <= 128.
+// hits: (n, pa) bytes, every one written by the kernel; pa <= 128. Row i
+// of B starts b_stride elements after row i - 1 (0: one shared b of pb
+// elements) and its length is LB[i * lb_step].
 // Returns 0 or the cudaError_t of the launch.
 int member_sweep_launch(const int32_t* A, const int32_t* LA, const int32_t* B,
                         const int32_t* LB, uint8_t* hits, int n, int pa,
-                        int pb, cudaStream_t stream) {
+                        int pb, int64_t b_stride, int lb_step,
+                        cudaStream_t stream) {
   if (pa > 32 * kSlots) return (int)cudaErrorInvalidValue;
   if (n == 0 || pa == 0) return 0;
   const unsigned blocks = (unsigned)((n + kWarps - 1) / kWarps);
   member_sweep_kernel<<<blocks, kThreads, 0, stream>>>(
       reinterpret_cast<const uint32_t*>(A), LA,
-      reinterpret_cast<const uint32_t*>(B), LB, hits, n, pa, pb);
+      reinterpret_cast<const uint32_t*>(B), LB, hits, n, pa, pb, b_stride,
+      lb_step);
   return (int)cudaGetLastError();
 }
 

@@ -14,6 +14,11 @@ head says what bounds each regime and how.
 `membership_batch_plain` beside it is the same function in plain
 PyTorch, by compare-all, taken for tensors on the CPU.
 
+B is one row per row of A, or one row shared by all of them (the
+reference's `vmap(in_axes=(0, 0, None, None))` form): the kernel reads
+row i of B at `i * b_stride`, with stride 0 for a shared b, which is
+uploaded once however many rows search it.
+
 The rows must be sorted ascending as uint32 within LA / LB (the
 reference's precondition). The kernel takes the uid bits as int32: a
 uint32 numpy row viewed as int32 (`np.ndarray.view(np.int32)`), and
@@ -28,7 +33,7 @@ import ctypes
 
 import torch
 
-from dgraph_tpu_torch.ops import setops
+from dgraph_tpu_torch.ops import setop_rows
 
 LANE = 128  # queries per row: four per lane of the row's warp
 MAX_PB = (1 << 31) - 1  # positions in a row are int32 in the kernel
@@ -49,7 +54,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.member_sweep_launch.restype = ctypes.c_int
     lib.member_sweep_launch.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_int
-    ] * 3 + [ctypes.c_void_p]
+    ] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
     lib.member_sweep_search_from.restype = ctypes.c_int64
     lib.member_sweep_search_from.argtypes = [ctypes.c_int]
     return lib
@@ -71,14 +76,19 @@ def search_from(la: int) -> int:
 
 
 def _check(A, LA, B, LB):
-    if A.dim() != 2 or B.dim() != 2 or A.shape[0] != B.shape[0]:
-        raise ValueError(f"want A (n, pa) and B (n, pb), got {A.shape}, {B.shape}")
+    """A (n, pa) against B (n, pb) with LB (n,), or against one shared
+    B (pb,) with LB (1,)."""
+    shared = B.dim() == 1
+    if A.dim() != 2 or not (shared or (B.dim() == 2 and A.shape[0] == B.shape[0])):
+        raise ValueError(
+            f"want A (n, pa) and B (n, pb) or (pb,), got {A.shape}, {B.shape}"
+        )
     n, pa = A.shape
     if pa > LANE:
         raise ValueError(f"member sweep is for <=128 queries per row, got {pa}")
-    if B.shape[1] > MAX_PB:
+    if B.shape[-1] > MAX_PB:
         raise ValueError(f"rows of B longer than {MAX_PB}")
-    for name, t, shape in (("LA", LA, (n,)), ("LB", LB, (n,))):
+    for name, t, shape in (("LA", LA, (n,)), ("LB", LB, (1,) if shared else (n,))):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
     for name, t in (("A", A), ("LA", LA), ("B", B), ("LB", LB)):
@@ -90,8 +100,11 @@ def _check(A, LA, B, LB):
 
 def membership_batch_plain(A, LA, B, LB) -> torch.Tensor:
     """Plain PyTorch version: a chunked compare-all broadcast over B.
-    A (n, pa), B (n, pb) int32; LA, LB (n,). Returns (n, pa) bool."""
+    A (n, pa), B (n, pb) int32; LA, LB (n,); or one shared B (pb,) with
+    LB (1,). Returns (n, pa) bool."""
     n, pa = A.shape
+    if B.dim() == 1:
+        B, LB = B.expand(n, B.shape[0]), LB.expand(n)
     pb = B.shape[1]
     hit = torch.zeros((n, pa), dtype=torch.bool, device=A.device)
     lb = LB.to(torch.int64).unsqueeze(1)
@@ -109,9 +122,9 @@ def membership_batch(A, LA, B, LB) -> torch.Tensor:
     """hit[i, j] = j < LA[i] and A[i, j] in B[i, :LB[i]].
 
     A (n, pa <= 128) and B (n, pb) int32 uid bits, rows sorted as uint32
-    within LA / LB, which are (n,) int32. On a CUDA tensor this launches
-    the kernel; on a CPU tensor it runs the plain version. Returns
-    (n, pa) bool."""
+    within LA / LB, which are (n,) int32; or one B (pb,) that every row
+    searches, with LB (1,). On a CUDA tensor this launches the kernel; on
+    a CPU tensor it runs the plain version. Returns (n, pa) bool."""
     global LAUNCHES, PLAIN_CALLS
     _check(A, LA, B, LB)
     if A.device.type == "cpu":
@@ -124,14 +137,16 @@ def membership_batch(A, LA, B, LB) -> torch.Tensor:
             raise ValueError(f"{name} must be contiguous")
     lib = _kernel()
     n, pa = A.shape
-    pb = B.shape[1]
+    pb = B.shape[-1]
+    shared = B.dim() == 1
     # every byte is written by the row's warp
     hits = torch.empty((n, pa), dtype=torch.uint8, device=A.device)
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.member_sweep_launch(
             A.data_ptr(), LA.data_ptr(), B.data_ptr(), LB.data_ptr(),
-            hits.data_ptr(), n, pa, pb, stream,
+            hits.data_ptr(), n, pa, pb, 0 if shared else pb, 0 if shared else 1,
+            stream,
         )
     if err:
         raise RuntimeError(f"member_sweep launch failed: cudaError {err}")
@@ -141,10 +156,10 @@ def membership_batch(A, LA, B, LB) -> torch.Tensor:
 
 def intersect_batch(A, LA, B, LB):
     """Batched intersect with the (out, cnt) contract of the batched
-    setops.intersect: out holds the kept uids of A (int64 u32 values,
-    UINT32_MAX padded), cnt their count per row."""
-    keep = membership_batch(A, LA, B, LB)
-    return setops.compact(A.to(torch.int64) & 0xFFFFFFFF, keep)
+    setops.intersect, in uid bits: out (n, pa) int32 holds the kept uids
+    of A, UINT32_MAX padded, cnt (n,) int32 their count per row. The
+    compaction after the sweep is setop_rows' (its kernel on a card)."""
+    return setop_rows.compact_batch(A, membership_batch(A, LA, B, LB))
 
 
 def membership(a, la, b, lb) -> torch.Tensor:
@@ -155,5 +170,5 @@ def membership(a, la, b, lb) -> torch.Tensor:
 
 def intersect(a, la, b, lb):
     """Single-row intersect for small a: membership, then compaction."""
-    keep = membership(a, la, b, lb)
-    return setops.compact(a.to(torch.int64) & 0xFFFFFFFF, keep)
+    out, cnt = setop_rows.compact_batch(a[None, :], membership(a, la, b, lb)[None, :])
+    return out[0], cnt[0]

@@ -6,9 +6,16 @@ to this dispatcher, which:
 
   1. splits u64 operands into hi-32 segments (codec/uidpack.py) so the
      ops run in the 32-bit local space,
-  2. buckets operand pairs by padded (pow2) shapes,
-  3. runs one batched op per bucket (ops/setops.py, and the member-sweep
-     kernel for small-side intersect buckets, ops/member_sweep.py),
+  2. buckets operand pairs by padded (pow2) shapes, or, for rows against
+     one shared operand, cuts every row at its segments in one pass over
+     the level buffer and runs each segment's rows against that
+     segment of the shared operand, uploaded once,
+  3. runs one batched op per bucket or segment: intersect and difference
+     through the hand-written kernels (ops/setop_rows.py, and the
+     member sweep with its compaction for intersect rows of <= 128,
+     ops/member_sweep.py), union through ops/setops.py; operands go up in
+     one copy through a pinned buffer of the calling thread, are padded
+     on the device, and the results come back in one copy,
   4. keeps tiny batches on the host (native C++ loops), where moving the
      operands to the card costs more than the work,
   5. row-shards a giant shared operand over the dispatcher's device mesh
@@ -31,7 +38,7 @@ import torch
 from dgraph_tpu_torch.codec import uidpack
 from dgraph_tpu_torch.codec.uidpack import join_segments, split_segments
 from dgraph_tpu_torch.device import resolve_device
-from dgraph_tpu_torch.ops import member_sweep, packed_setops, setops
+from dgraph_tpu_torch.ops import member_sweep, packed_setops, setop_rows, setops
 from dgraph_tpu_torch.x import config
 
 # Below this much total work, host kernels win. Setting 0 means "always
@@ -57,12 +64,10 @@ _USE_PALLAS = bool(config.get("PALLAS"))
 _MIN_PAD = 8
 # small side of a bucket the member sweep takes (one query per thread)
 _SWEEP_MAX_PA = member_sweep.LANE
-# the batched op for each set op; setops broadcast a shared 1-D operand
-_BATCH_OPS: Dict[str, Callable] = {
-    "intersect": setops.intersect,
-    "difference": setops.difference,
-    "union": setops.union,
-}
+_LO = np.uint64(0xFFFFFFFF)
+_HI_SHIFT = np.uint64(32)
+# this thread's pinned staging buffers (up, down), reused across calls
+_STAGE = threading.local()
 
 
 def _planner_enabled() -> bool:
@@ -225,11 +230,77 @@ def _as_array(x) -> np.ndarray:
     )
 
 
-def _u32_rows(out: torch.Tensor, cnt: torch.Tensor, n: int) -> List[np.ndarray]:
-    """The first cnt[i] uids of each of the first n rows, as uint32."""
-    out = out.cpu().numpy().astype(np.uint32)
-    cnt = cnt.cpu().numpy()
-    return [out[i, : cnt[i]] for i in range(n)]
+def _halves(flat: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """The (lo, hi) 32-bit words of a u64 array: views of its little-endian
+    words (of the array itself where it is contiguous and little-endian)."""
+    words = np.ascontiguousarray(flat, dtype="<u8").view("<u4").reshape(-1, 2)
+    return words[:, 0], words[:, 1]
+
+
+def _pinned(slot: str, words: int):
+    """This thread's pinned int32 host buffer `slot` of at least `words`
+    words, and the event of its last upload (None for downloads)."""
+    got = getattr(_STAGE, slot, None)
+    if got is None or got[0].numel() < words:
+        buf = torch.empty((_pow2(words),), dtype=torch.int32, pin_memory=True)
+        got = (buf, torch.cuda.Event() if slot == "up" else None)
+        setattr(_STAGE, slot, got)
+    return got
+
+
+def _stage(dev: torch.device, parts: Sequence[np.ndarray]) -> List[torch.Tensor]:
+    """Host arrays of 32-bit words (uid bits, lengths) on `dev`, as int32,
+    in one copy: through this thread's pinned buffer on a card, which is
+    reused once its last upload is done."""
+    parts = [np.ascontiguousarray(p).view(np.int32) for p in parts]
+    sizes = [p.size for p in parts]
+    total = sum(sizes)
+    if dev.type != "cuda":
+        flat = torch.from_numpy(np.concatenate(parts) if parts else np.zeros(0, np.int32))
+        return list(torch.split(flat, sizes))
+    buf, done = _pinned("up", total)
+    done.synchronize()
+    if total:
+        np.concatenate(parts, out=buf[:total].numpy())
+    flat = torch.empty((total,), dtype=torch.int32, device=dev)
+    flat.copy_(buf[:total], non_blocking=True)
+    done.record()
+    return list(torch.split(flat, sizes))
+
+
+def _fetch(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
+    """int32 device tensors back to the host in one copy, as uint32 numpy
+    arrays of their shapes. On a card they are views of this thread's
+    pinned buffer, valid until its next fetch: copy what is kept."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    if flat.device.type == "cuda":
+        buf, _ = _pinned("down", flat.numel())
+        buf[: flat.numel()].copy_(flat, non_blocking=True)
+        torch.cuda.current_stream(flat.device).synchronize()
+        host = buf[: flat.numel()].numpy()
+    else:
+        host = flat.numpy()
+    host = host.view(np.uint32)
+    out, at = [], 0
+    for t in tensors:
+        out.append(host[at : at + t.numel()].reshape(tuple(t.shape)))
+        at += t.numel()
+    return out
+
+
+def _pad_dev(vals: torch.Tensor, lens: torch.Tensor, width: int) -> torch.Tensor:
+    """Rows (len(lens), width) int32, padded with UINT32_MAX, from the
+    concatenated rows `vals` and their lengths, on their device."""
+    n, m = lens.shape[0], vals.shape[0]
+    out = torch.full((n, width), -1, dtype=torch.int32, device=vals.device)
+    if m:
+        lens = lens.to(torch.int64)
+        row = torch.repeat_interleave(
+            torch.arange(n, device=vals.device), lens, output_size=m
+        )
+        start = torch.cumsum(lens, 0) - lens
+        out[row, torch.arange(m, device=vals.device) - start[row]] = vals
+    return out
 
 
 class SetOpDispatcher:
@@ -399,8 +470,9 @@ class SetOpDispatcher:
         the DeviceCache and reused across calls/queries until a commit
         invalidates the key.
 
-        Small work stays on the host. u64 inputs with multiple hi-32
-        segments go to the generic pair path."""
+        Small work stays on the host. On the device, intersect and
+        difference run each hi-32 segment's rows against b's segment
+        (`_vs_one_device`); union goes to the pair path."""
         rows = list(rows)
         if not rows:
             return []
@@ -430,71 +502,146 @@ class SetOpDispatcher:
                     off += n
                 return out
             return [_np_op(op, r, b) for r in rows]
-        if (
-            op in ("intersect", "difference")
-            and len(b) >= _SHARD_MIN_B
-            and self._mesh().size > 1
-        ):
+        if op in ("intersect", "difference") and self._shard_gate(b):
             got = self._run_rows_sharded(op, rows, b, b_token)
             if got is not None:
                 return got
-        bseg = split_segments(np.asarray(b, np.uint64))
-        row_segs = [split_segments(np.asarray(r, np.uint64)) for r in rows]
-        his = set(bseg)
-        for rs in row_segs:
-            his |= set(rs)
-        if len(his) > 1 or any(len(rs) > 1 for rs in row_segs):
+        if op == "union":
             return self.run_pairs(op, [(r, b) for r in rows])
+        from dgraph_tpu_torch.query import ragged
 
+        flat, offs = ragged.pack_rows([np.asarray(r, np.uint64) for r in rows])
+        res, res_offs = self._vs_one_device(
+            op, flat, offs, np.asarray(b, np.uint64), row_tokens, b_token
+        )
+        return ragged.row_views(res, res_offs)
+
+    def _shard_gate(self, b) -> bool:
+        """Whether a shared operand is giant enough to row-shard over the
+        dispatcher's mesh (and the mesh has more than one device)."""
+        return len(b) >= _SHARD_MIN_B and self._mesh().size > 1
+
+    def _batch_fn(self, op: str, pa: int) -> Callable:
+        """The batched intersect or difference of rows of width pa, B
+        paired or shared: K1 and its compaction, or setop_rows."""
+        if self._sweeps(op, pa):
+            return member_sweep.intersect_batch
+        return getattr(setop_rows, f"{op}_batch")
+
+    def _vs_one_device(self, op, flat, offs, b, row_tokens=None, b_token=None):
+        """op(row, b) for intersect or difference of every row of a ragged
+        level buffer (`flat`, `offs`) against one shared sorted b, on the
+        device; returns the result as (flat, offs).
+
+        The hi-32 segments are cut once, over the whole buffer: a sub-row
+        is a run of one row within one segment. The sub-rows of segment h
+        run together against b's segment h as one shared operand, which
+        goes up once (or comes from the DeviceCache under
+        ("b", b_token, h, pb)); with every row's token given and one
+        segment in all, the padded rows are cached too, under
+        ("rows", h, pa, row_tokens).
+        Sub-rows of a segment that b lacks are empty for intersect and
+        pass through whole for difference. One upload, the padding on the
+        device, one read back; rows stay sorted since each row's
+        sub-rows are joined in hi order."""
+        n = len(offs) - 1
+        N = flat.size
+        if not N:
+            return flat, offs
         dev = self._dev()
-        hi = next(iter(his)) if his else 0
-        b32 = bseg.get(hi, np.zeros((0,), np.uint32))
-        pb = _pow2(len(b32))
-        Bd = None
-        if b_token is not None:
-            cached = self.device_cache.get(("b", b_token, hi, pb))
-            if cached is not None:
-                Bd = cached[0]
-        if Bd is None:
-            Bd = setops.to_device(setops.pad_sorted(b32, pb), dev)
-            if b_token is not None:
+        lo, hi = _halves(flat)
+        # a sub-row starts where a row starts or the hi word changes
+        cut = np.zeros((N,), bool)
+        cut[offs[:-1][np.diff(offs) > 0]] = True
+        cut[1:] |= hi[1:] != hi[:-1]
+        starts = np.flatnonzero(cut)
+        sub_len = np.diff(np.append(starts, N))
+        sub_hi = hi[starts]
+        b_his, b_at, b_n = np.unique(b >> _HI_SHIFT, return_index=True, return_counts=True)
+        seg_his = np.unique(sub_hi)
+        # padded rows are cached only where the reference caches them: all
+        # rows and b in one segment. The tokens name no store, so a wider
+        # cache could serve another store's rows where the reference reads
+        # its own (ROADMAP Queue 3 C)
+        stack = (
+            row_tokens is not None and len(row_tokens) == n
+            and all(t is not None for t in row_tokens)
+            and len(set(seg_his.tolist()) | set(b_his.tolist())) == 1
+        )
+        rows_key = tuple(row_tokens) if stack else None
+        kept = np.zeros((len(starts),), np.int64)
+        through = []  # segments b lacks, passed through whole (difference)
+        groups = []  # one a segment that runs on the device
+        uploads = []  # (group, its field, host array)
+        for h in seg_his:
+            subs = np.flatnonzero(sub_hi == h)
+            k = int(np.searchsorted(b_his, h))
+            if k == len(b_his) or b_his[k] != h:
+                if op == "difference":
+                    through.append(h)
+                    kept[subs] = sub_len[subs]
+                continue
+            lens = sub_len[subs].astype(np.int32)
+            b32 = (b[b_at[k] : b_at[k] + b_n[k]] & _LO).astype(np.uint32)
+            g = {"subs": subs, "pa": _pow2(int(lens.max()))}
+            g["rows_tok"] = ("rows", int(h), g["pa"], rows_key) if stack else None
+            g["b_tok"] = None if b_token is None else ("b", b_token, int(h), _pow2(len(b32)))
+            got = g["rows_tok"] and self.device_cache.get(g["rows_tok"])
+            if got:
+                g["A"], g["LA"] = got
+            else:
+                uploads += [(g, "A", lo[hi == h]), (g, "LA", lens)]
+            got = g["b_tok"] and self.device_cache.get(g["b_tok"])
+            if got:
+                g["B"], g["LB"] = got
+            else:
+                uploads += [(g, "B", b32), (g, "LB", np.array([len(b32)], np.int32))]
+            groups.append((int(h), g))
+        for (g, field, _), t in zip(uploads, _stage(dev, [u[2] for u in uploads])):
+            g[field] = t
+            g["new_" + field] = True
+        # what is cached is cloned out of the staging block, which it
+        # would otherwise keep alive
+        for h, g in groups:
+            if g.get("new_A"):
+                g["A"] = _pad_dev(g["A"], g["LA"], g["pa"])
+                if g["rows_tok"]:
+                    g["LA"] = g["LA"].clone()
+                    self.device_cache.put(
+                        g["rows_tok"], [t[0] for t in row_tokens], (g["A"], g["LA"]),
+                        4 * (g["A"].numel() + g["LA"].numel()),
+                    )
+            if g.get("new_B") and g["b_tok"]:
+                g["B"], g["LB"] = g["B"].clone(), g["LB"].clone()
                 self.device_cache.put(
-                    ("b", b_token, hi, pb), [b_token[0]], (Bd,), pb * 8
+                    g["b_tok"], [b_token[0]], (g["B"], g["LB"]), 4 * (g["B"].numel() + 1)
                 )
-        LB = len(b32)
-
-        pa = _pow2(max((len(rs.get(hi, ())) for rs in row_segs), default=1))
-        n = len(rows)
-        nb = _pow2(n)
-        Ad = LAd = None
-        stack_tok = None
-        if row_tokens is not None and len(row_tokens) == n and all(
-            t is not None for t in row_tokens
-        ):
-            stack_tok = ("stack", hi, pa, nb, tuple(row_tokens))
-            cached = self.device_cache.get(stack_tok)
-            if cached is not None:
-                Ad, LAd = cached
-        if Ad is None:
-            A = np.full((nb, pa), setops.UINT32_MAX, np.uint32)
-            LA = np.zeros((nb,), np.int64)
-            for i, rs in enumerate(row_segs):
-                r32 = rs.get(hi, np.zeros((0,), np.uint32))
-                A[i, : len(r32)] = r32
-                LA[i] = len(r32)
-            Ad = setops.to_device(A, dev)
-            LAd = torch.from_numpy(LA).to(dev)
-            if stack_tok is not None:
-                self.device_cache.put(
-                    stack_tok,
-                    [t[0] for t in row_tokens],
-                    (Ad, LAd),
-                    int(nb * pa * 8 + nb * 8),
-                )
-        # rows (nb, pa) against one shared b (pb,): the reference's
-        # vmap(in_axes=(0, 0, None, None)); the setops broadcast a 1-D b
-        out, cnt = _BATCH_OPS[op](Ad, LAd, Bd, LB)
-        return [join_segments({hi: r}) for r in _u32_rows(out, cnt, n)]
+            g["out"], g["cnt"] = self._batch_fn(op, g["pa"])(g["A"], g["LA"], g["B"], g["LB"])
+        got = _fetch([t for _, g in groups for t in (g["out"], g["cnt"])]) if groups else []
+        for (_, g), out, cnt in zip(groups, got[0::2], got[1::2]):
+            g["out"], g["cnt"] = out, cnt
+            kept[g["subs"]] = cnt
+        out_at = np.zeros((len(starts) + 1,), np.int64)
+        np.cumsum(kept, out=out_at[1:])
+        res = np.empty((int(out_at[-1]),), np.uint64)
+        for h, g in groups:  # the kept words alone: sub-row i's first cnt[i]
+            cnt = g["cnt"].astype(np.int64)
+            sub = np.repeat(np.arange(len(cnt)), cnt)
+            col = np.arange(len(sub)) - (np.cumsum(cnt) - cnt)[sub]
+            res[out_at[g["subs"]][sub] + col] = (
+                g["out"][sub, col].astype(np.uint64) | (np.uint64(h) << _HI_SHIFT)
+            )
+        if through:
+            e = np.flatnonzero(np.isin(hi, np.array(through, np.uint32)))
+            sub = np.searchsorted(starts, e, side="right") - 1
+            res[out_at[sub] + e - starts[sub]] = flat[e]
+        res_offs = np.zeros((n + 1,), np.int64)
+        sub_row = np.searchsorted(offs, starts, side="right") - 1
+        np.cumsum(
+            np.bincount(sub_row, weights=kept, minlength=n).astype(np.int64),
+            out=res_offs[1:],
+        )
+        return res, res_offs
 
     def _mesh(self):
         """The dispatcher's device mesh (parallel/mesh.py), on its device."""
@@ -576,7 +723,9 @@ class SetOpDispatcher:
 
         The host path is fully vectorized — one searchsorted over the
         whole flat buffer plus one cumsum to rebuild offsets. The device
-        path reuses the padded-matrix upload via zero-copy row views."""
+        path for intersect and difference (`_vs_one_device`) cuts the
+        buffer at its segments in one pass and never forms a list of
+        rows."""
         from dgraph_tpu_torch.query import ragged
 
         n = len(offs) - 1
@@ -598,6 +747,10 @@ class SetOpDispatcher:
             if op == "difference":
                 mask = ~mask
             return ragged.apply_mask(flat, offs, mask)
+        if op in ("intersect", "difference") and not self._shard_gate(b64):
+            return self._vs_one_device(
+                op, np.asarray(flat, np.uint64), offs, b64, row_tokens, b_token
+            )
         rows = [flat[offs[i] : offs[i + 1]] for i in range(n)]
         res = self.run_rows_vs_one(
             op, rows, b64, row_tokens=row_tokens, b_token=b_token
@@ -669,7 +822,8 @@ class SetOpDispatcher:
         dev = self._dev()
         fn = setops.intersect_many if op == "intersect" else setops.merge_sorted
         out, cnt = fn(setops.to_device(M, dev), torch.from_numpy(L).to(dev))
-        return join_segments({hi: _u32_rows(out[None], cnt[None], 1)[0]})
+        out, cnt = _fetch([setop_rows.to_bits(out), cnt.to(torch.int32)])
+        return join_segments({hi: out[: int(cnt)]})
 
     def _run_chain_packed_intersect(self, parts: List) -> np.ndarray:
         """Intersect chain with packed operands: fold from the smallest
@@ -794,40 +948,30 @@ class SetOpDispatcher:
         member-sweep kernel (the reference's Pallas branch)."""
         return _USE_PALLAS and op == "intersect" and pa <= _SWEEP_MAX_PA
 
-    def _get_fn(self, op: str, pa: int) -> Callable:
-        """The batched op of a bucket. No compile step stands between a
-        shape and its op in torch, so the reference's jit cache becomes
-        the plain table of ops (_BATCH_OPS)."""
-        if self._sweeps(op, pa):
-            return member_sweep.intersect_batch
-        return _BATCH_OPS[op]
-
     def _run_bucket(self, op, pa, pb, jobs):
+        """One batched op over the (pair, hi, a, b) sub-jobs of a bucket:
+        the rows go up in one copy, are padded to (n, pa) and (n, pb) on
+        the device, and come back in one copy. Intersect and difference
+        run on the hand-written kernels; union on setops.union."""
         n = len(jobs)
-        nb = _pow2(n)
-        A = np.full((nb, pa), setops.UINT32_MAX, np.uint32)
-        B = np.full((nb, pb), setops.UINT32_MAX, np.uint32)
-        LA = np.zeros((nb,), np.int32)
-        LB = np.zeros((nb,), np.int32)
-        for i, (_, _, a, b) in enumerate(jobs):
-            A[i, : len(a)] = a
-            B[i, : len(b)] = b
-            LA[i] = len(a)
-            LB[i] = len(b)
         dev = self._dev()
-        fn = self._get_fn(op, pa)
-        if self._sweeps(op, pa):
-            # the sweep asks only for equality: uid bits as int32
-            args = [torch.from_numpy(x.view(np.int32)).to(dev) for x in (A, LA, B, LB)]
+        a_vals, a_lens, b_vals, b_lens = _stage(dev, [
+            np.concatenate([j[2] for j in jobs]),
+            np.fromiter((len(j[2]) for j in jobs), np.int32, n),
+            np.concatenate([j[3] for j in jobs]),
+            np.fromiter((len(j[3]) for j in jobs), np.int32, n),
+        ])
+        A, B = _pad_dev(a_vals, a_lens, pa), _pad_dev(b_vals, b_lens, pb)
+        if op == "union":
+            out, cnt = setops.union(
+                setop_rows.to_u32(A), a_lens.to(torch.int64),
+                setop_rows.to_u32(B), b_lens.to(torch.int64),
+            )
+            out, cnt = setop_rows.to_bits(out), cnt.to(torch.int32)
         else:
-            args = [
-                setops.to_device(A, dev),
-                torch.from_numpy(LA.astype(np.int64)).to(dev),
-                setops.to_device(B, dev),
-                torch.from_numpy(LB.astype(np.int64)).to(dev),
-            ]
-        out, cnt = fn(*args)
-        return _u32_rows(out, cnt, n)
+            out, cnt = self._batch_fn(op, pa)(A, a_lens, B, b_lens)
+        out, cnt = _fetch([out, cnt])
+        return [out[i, : cnt[i]].copy() for i in range(n)]
 
 
 # Module-level singleton used by the executor. Bound to CUDA by default;

@@ -7,16 +7,25 @@ through `dgraph_tpu.query.dispatch.SetOpDispatcher` (jax on the CPU) and
 FORCE_DEVICE and PALLAS knobs patched the same way in both modules (the
 knobs are module globals read at import). Operands straddle the 2^32
 segment boundary and include compressed (packed) posting lists. Results
-must be equal exactly, and equal to numpy's set ops.
+must be equal exactly, and equal to numpy's set ops. The forced device
+path uploads each segment of a shared operand once, never splits rows
+one by one, and caches its uploads under tokens that a commit drops.
+Last, the reference's own tests of these paths (tests/
+test_shortest_recurse.py, and test_dispatch_cache.py's chain and cache
+cases) run on both packages through the runner of
+tests/test_torch_graphql.py, the port's side on the forced device path.
 """
 
 import numpy as np
 import pytest
 
+import torch
+from test_torch_graphql import cases, run_both, runner  # noqa: F401 - fixture
+
 from dgraph_tpu.codec import uidpack as ref_uidpack
 from dgraph_tpu.query import dispatch as ref
 from dgraph_tpu_torch.codec import uidpack as port_uidpack
-from dgraph_tpu_torch.ops import member_sweep
+from dgraph_tpu_torch.ops import member_sweep, setop_rows
 from dgraph_tpu_torch.posting.memlayer import MemoryLayer
 from dgraph_tpu_torch.query import dispatch as port
 
@@ -205,3 +214,142 @@ def test_cuda_request_without_a_card_raises(monkeypatch):
     with pytest.raises(RuntimeError):
         d.bind("cuda")
     assert d.device.type == "cpu"
+
+
+def _ragged(rows):
+    flat = np.concatenate(rows).astype(np.uint64)
+    offs = np.zeros((len(rows) + 1,), np.int64)
+    np.cumsum([len(x) for x in rows], out=offs[1:])
+    return flat, offs
+
+
+@pytest.mark.parametrize("op", ["intersect", "difference"])
+@pytest.mark.parametrize("width", [60, 400], ids=["sweep", "setop_rows"])
+def test_shared_operand_uploads_once_per_segment(op, width, monkeypatch):
+    """Rows across 2^32 against one b on the forced device path: b's
+    segment goes up once per hi, whatever the number of rows, and comes
+    from the DeviceCache after; no row is split on its own; the answers
+    equal the reference dispatcher's and numpy's."""
+    monkeypatch.setattr(port, "_FORCE_DEVICE", True)
+    monkeypatch.setattr(port, "_USE_PALLAS", True)
+    monkeypatch.setattr(ref, "_FORCE_DEVICE", True)
+    staged, splits = [], []
+    real_stage, real_split = port._stage, port.split_segments
+    monkeypatch.setattr(port, "_stage", lambda dev, parts: staged.extend(parts) or real_stage(dev, parts))
+    monkeypatch.setattr(port, "split_segments", lambda u: splits.append(len(u)) or real_split(u))
+    rng = np.random.default_rng(12)
+    rows = [_straddle(rng, int(n)) for n in rng.integers(0, 2 * width, size=40)]
+    b = _straddle(rng, 2000)
+    segs = real_split(b)
+    assert len(segs) == 2
+    d = port.SetOpDispatcher(device="cpu")
+    flat, offs = _ragged(rows)
+    wf, wo = ref.SetOpDispatcher().run_rows_vs_one_ragged(op, flat, offs, b)
+    for call in range(2):
+        staged.clear()
+        gf, go = d.run_rows_vs_one_ragged(op, flat, offs, b, b_token=(b"b", 1))
+        np.testing.assert_array_equal(go, wo)
+        np.testing.assert_array_equal(gf, wf)
+        ups = [sum(np.array_equal(p.view(np.uint32), s32) for p in staged) for s32 in segs.values()]
+        assert ups == ([1, 1] if call == 0 else [0, 0])  # the second call: the cache
+    np_op = np.intersect1d if op == "intersect" else np.setdiff1d
+    np.testing.assert_array_equal(wf, np.concatenate([np_op(r, b) for r in rows]))
+    staged.clear()
+    for g, w in zip(d.run_rows_vs_one(op, rows, b), ref.SetOpDispatcher().run_rows_vs_one(op, rows, b)):
+        np.testing.assert_array_equal(g, w)
+    assert [sum(np.array_equal(p.view(np.uint32), s32) for p in staged)
+            for s32 in segs.values()] == [1, 1]
+    assert splits == []
+
+
+@pytest.mark.parametrize("pair", MODES[1:], ids=MODE_IDS[1:], indirect=True)
+@pytest.mark.parametrize("op", ["intersect", "difference"])
+def test_shared_operand_in_other_segments(pair, op):
+    """Rows whose segments the shared operand lacks, wholly or in part:
+    empty for intersect, whole for difference."""
+    r, p = pair
+    rng = np.random.default_rng(15)
+    rows = [_set(rng, int(k), 10, 5000) for k in (0, 30, 200)] + [_straddle(rng, 90)]
+    for b in (_set(rng, 400, 3 * SEG, 3 * SEG + 9000), _set(rng, 400, SEG, SEG + 4000)):
+        flat, offs = _ragged(rows)
+        wf, wo = r.run_rows_vs_one_ragged(op, flat, offs, b)
+        gf, go = p.run_rows_vs_one_ragged(op, flat, offs, b)
+        np.testing.assert_array_equal(go, wo)
+        np.testing.assert_array_equal(gf, wf)
+        _assert_lists(p.run_rows_vs_one(op, rows, b), r.run_rows_vs_one(op, rows, b))
+        _assert_lists(r.run_rows_vs_one(op, rows, b), [NP_OPS[op](x, b) for x in rows])
+
+
+def test_segment_cache_entries_dropped_by_a_commit(monkeypatch):
+    """The ("b", token, hi, pb) entries of a shared operand over two
+    segments are reused and go when the port's MemoryLayer invalidates
+    their key. Rows over two segments are not cached by their tokens, as
+    in the reference, whose tokens name no store: rows of another store
+    under the same tokens are read as they are."""
+    monkeypatch.setattr(port, "_FORCE_DEVICE", True)
+    d = port.DISPATCHER
+    d.bind("cpu")
+    d.device_cache.clear()
+    rng = np.random.default_rng(13)
+    rows = [_straddle(rng, 300) for _ in range(5)]
+    toks = [(b"seg-row%d" % i, 2) for i in range(5)]
+    b = _straddle(rng, 3000)
+    first = d.run_rows_vs_one("difference", rows, b, row_tokens=toks, b_token=(b"seg-b", 2))
+    keys = set(d.device_cache._entries)
+    assert {k for k in keys if k[0] == "b"} == {
+        ("b", (b"seg-b", 2), h, port._pow2(len(x))) for h, x in port.split_segments(b).items()
+    }
+    assert not any(k[0] == "rows" for k in keys)
+    hits = d.device_cache.hits
+    _assert_lists(d.run_rows_vs_one("difference", rows, b, row_tokens=toks, b_token=(b"seg-b", 2)),
+                  first)
+    assert d.device_cache.hits == hits + 2
+    other = [_straddle(rng, 300) for _ in range(5)]
+    _assert_lists(d.run_rows_vs_one("difference", other, b, row_tokens=toks),
+                  [NP_OPS["difference"](x, b) for x in other])
+    MemoryLayer().invalidate([b"seg-b"])
+    assert d.device_cache.stats()["entries"] == 0
+
+
+def test_kernels_serve_the_device_path(monkeypatch):
+    """On the forced device path intersect and difference reach
+    setop_rows (its plain version on the CPU) in all three entries, and
+    K1 with its compaction takes intersect rows of <= 128."""
+    monkeypatch.setattr(port, "_FORCE_DEVICE", True)
+    monkeypatch.setattr(port, "_USE_PALLAS", True)
+    d = port.SetOpDispatcher(device="cpu")
+    rng = np.random.default_rng(14)
+    rows = [_straddle(rng, 500) for _ in range(4)]
+    b = _straddle(rng, 2000)
+    for op in ("intersect", "difference"):
+        calls = setop_rows.PLAIN_CALLS
+        d.run_rows_vs_one_ragged(op, *_ragged(rows), b)
+        d.run_rows_vs_one(op, rows, b)
+        d.run_pairs(op, [(r, b) for r in rows])
+        assert setop_rows.PLAIN_CALLS >= calls + 5  # two segments, two, one bucket
+    sweeps = member_sweep.PLAIN_CALLS
+    d.run_rows_vs_one("intersect", [_straddle(rng, 100)], b)
+    assert member_sweep.PLAIN_CALLS == sweeps + 2  # one a segment
+
+
+# ---------------------------------------------------------------------------
+# The reference's tests of the rewritten paths, on both packages
+# ---------------------------------------------------------------------------
+
+REF_CASES = cases("test_shortest_recurse") + cases(
+    "test_dispatch_cache",
+    only=["test_run_chain_intersect_matches_numpy", "test_run_chain_union_matches_numpy",
+          "test_run_chain_small_host_path", "test_device_cache_hit_and_invalidate",
+          "test_device_cache_lru_bound"],
+)
+
+
+@pytest.mark.parametrize("case", REF_CASES)
+def test_reference_cases_on_both_packages(case, runner, tmp_path, request, monkeypatch):  # noqa: F811
+    """The reference case passes on both packages with equal answers, the
+    port's dispatchers (the module's and any it builds) on the CPU."""
+    init = port.SetOpDispatcher.__init__
+    monkeypatch.setattr(port.SetOpDispatcher, "__init__",
+                        lambda self, device="cpu": init(self, device))
+    monkeypatch.setattr(port.DISPATCHER, "device", torch.device("cpu"))
+    run_both(runner, case, tmp_path, request)

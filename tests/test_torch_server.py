@@ -1,9 +1,9 @@
 """The port's embedded Server against the JAX reference Server.
 
-The DQL golden smoke subset (every 9th case of tests/ref_golden, the one
-tests/test_stream_encoder.py uses) runs through `dgraph_tpu.api.server.
-Server` and through `dgraph_tpu_torch.api.server.Server(device="cpu")`;
-the `data` bytes must be equal. The port answers from three stores:
+The whole DQL golden corpus (the 535 cases of tests/ref_golden) runs
+through `dgraph_tpu.api.server.Server` and through
+`dgraph_tpu_torch.api.server.Server(device="cpu")`; the `data` bytes
+must be equal. The port answers from three stores:
 loaded through its own mutations, carried over from the reference's KV
 dump (`carry_state`), and loaded again but with every set op forced onto
 the torch device path with the member sweep on. A small fan-out graph
@@ -25,7 +25,7 @@ from dgraph_tpu_torch.query import dispatch
 
 HERE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ref_golden")
 CASES = json.load(open(os.path.join(HERE, "cases.json")))
-SMOKE_CASES = CASES[::9]
+SMOKE_CASES = CASES
 STORES = ["loaded", "carried", "loaded-device"]
 
 
@@ -43,10 +43,16 @@ def _load(server):
 
 def _schema_text(server):
     """The reference's whole schema as text: its alters and the
-    predicates its mutations created, which only its memory holds."""
+    predicates its mutations created, which only its memory holds. The
+    reference's export line drops `@noconflict` (so does the port's
+    copy), so it is added back here."""
     from dgraph_tpu.admin.export import _schema_line
 
-    lines = [_schema_line(server.schema.get(p)) for p in server.schema.predicates()]
+    def line(su):
+        text = _schema_line(su)
+        return text[: -len(" .")] + " @noconflict ." if su.no_conflict else text
+
+    lines = [line(server.schema.get(p)) for p in server.schema.predicates()]
     for name in server.schema.types():
         fields = "\n  ".join(server.schema.get_type(name).fields)
         lines.append(f"type {name} {{\n  {fields}\n}}")
