@@ -1140,16 +1140,24 @@ def dispatcher_across_segments(device="cuda", seed=4):
             "difference): equal to numpy")
 
 
+def setop_shapes_equal(by_shape):
+    """setop_rows against its plain version, exactly, on the inputs of
+    every shape a path gave each wrapper (a `_Capture` of SETOP_WRAPPERS).
+    Returns {(wrapper, *shape): mismatches}."""
+    return {key: measure_setop(key[0], args, timed=False)["mismatches"]
+            for key, args in sorted(by_shape.items(), key=str)}
+
+
 def setop_served(by_shape, log=print):
     """setop_rows against its plain version, exactly, on the inputs of
     every shape the main path gave each wrapper, and timed on the
     heaviest of each wrapper. Returns {wrapper: measurement}."""
+    bad = {k: n for k, n in setop_shapes_equal(by_shape).items() if n}
+    if bad:
+        raise AssertionError(f"main-path setop_rows != plain at {bad}")
     out = {}
     for key, args in sorted(by_shape.items(), key=str):
         name = key[0]
-        r = measure_setop(name, args, timed=False)
-        if r["mismatches"]:
-            raise AssertionError(f"main-path {key}: kernel != plain ({r})")
         if name not in out or setop_bound_ms(name, args)[0] > setop_bound_ms(name, out[name][1])[0]:
             out[name] = (key, args)
     log(f"equal to plain at every shape it took: {sorted(by_shape, key=str)}")
@@ -1160,6 +1168,32 @@ def setop_served(by_shape, log=print):
         if not res[name]["library_agrees"]:
             raise AssertionError(f"main-path {key}: library != plain")
         log(f"{name} at {key[1:]} (served): " + _fmt(res[name]))
+    return res
+
+
+def k1_route_against_setop_rows(A, LA, B, LB, reps=7):
+    """The two routes of an intersect over rows of <= 128 on the card, on
+    the same inputs: K1 and its compaction (member_sweep.intersect_batch,
+    the dispatcher's route) and setop_rows' one fused kernel. They must be
+    equal; returns the events and device ms of each, in ms."""
+    import torch
+
+    from dgraph_tpu_torch.ops import member_sweep, setop_rows
+
+    pa = int(A.shape[1])
+    routes = {
+        "k1_compact": (lambda: member_sweep.intersect_batch(A, LA, B, LB),
+                       {"member_sweep_kernel": 1, **setop_rows.kernel_names(pa)}),
+        "setop_rows": (lambda: setop_rows.intersect_batch(A, LA, B, LB),
+                       setop_rows.kernel_names(pa)),
+    }
+    (o1, c1), (o2, c2) = (fn() for fn, _ in routes.values())
+    torch.cuda.synchronize()
+    if not (torch.equal(o1, o2) and torch.equal(c1, c2)):
+        raise AssertionError(f"K1 and its compaction != setop_rows at {_shape_key((A, LA, B, LB))}")
+    res = {"shape": _shape_key((A, LA, B, LB))}
+    for key, (fn, names) in routes.items():
+        res[key] = {"ms": _events_ms(fn, reps), "device_ms": kernel_device_ms(fn, name=names)}
     return res
 
 
@@ -4959,17 +4993,37 @@ def main(argv=None) -> int:
     print(f"    {_shape_key((A, LA, B, LB))}: rows sorted as "
           f"uint32; equal; {_fmt(main)}; all-of-B byte time "
           f"{all_of_b_ms(A, LA, B, LB):.6f}; rows {main['regimes']}", flush=True)
+    # the dispatcher's route for these rows against setop_rows' fused kernel
+    route = k1_route_against_setop_rows(A, LA, B, LB)
+    print(f"    routes at {route['shape']}, equal: K1 and its compaction "
+          f"{route['k1_compact']['ms']:.6f} ms (device {route['k1_compact']['device_ms']:.6f}); "
+          f"setop_rows {route['setop_rows']['ms']:.6f} ms (device "
+          f"{route['setop_rows']['device_ms']:.6f})", flush=True)
     del s["captured"], A, LA, B, LB
-    setop_main = setop_served(s.pop("setop_captured"), log=lambda m: print("    " + m, flush=True))
-    # setop_rows launches of each later path, its count zeroed just before
-    setop_paths = {"4": s["setop_launches"]}
+    captured4 = s.pop("setop_captured")
+    setop_main = setop_served(captured4, log=lambda m: print("    " + m, flush=True))
+    # setop_rows launches of each later path, its count zeroed just before,
+    # and the shapes at which it was held against its plain version
+    setop_paths, setop_checked = {"4": s["setop_launches"]}, {"4": len(captured4)}
+    del captured4
 
     def setop_counted(path, fn, *a, **kw):
-        setop_rows.LAUNCHES = 0
+        setop_rows.LAUNCHES = launches = 0
         try:
-            return fn(*a, **kw)
+            with _Capture(setop_rows, SETOP_WRAPPERS) as scap:
+                got = fn(*a, **kw)
         finally:
-            setop_paths[path] = setop_paths.get(path, 0) + setop_rows.LAUNCHES
+            launches = setop_rows.LAUNCHES
+            setop_paths[path] = setop_paths.get(path, 0) + launches
+        by_shape = scap.by_shape
+        bad = {k: n for k, n in setop_shapes_equal(by_shape).items() if n}
+        if bad:
+            raise AssertionError(f"({path}) setop_rows != plain at {bad}")
+        setop_checked[path] = setop_checked.get(path, 0) + len(by_shape)
+        print(f"    ({path}) {fn.__name__}: setop_rows launches {launches}, equal to plain "
+              f"at every shape it took: {len(by_shape)} shapes", flush=True)
+        del scap, by_shape
+        return got
     print(f"    total {time.perf_counter() - t_start:.3f}s", flush=True)
 
     print("[6] vector kernels vs plain (KV1 bitwise, KV2 within tolerance), times in "
@@ -5123,7 +5177,7 @@ def main(argv=None) -> int:
     rows.append({
         "name": "setop_rows", "route": "cuda", "source": "dgraph_tpu_torch/csrc/setop_rows.cu",
         "replaces": "dgraph_tpu/ops/setops.py:87", "launches": sum(setop_paths.values()),
-        "launches_by_path": setop_paths,
+        "launches_by_path": setop_paths, "shapes_checked_by_path": setop_checked,
         **{key: heavy[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                        "library_ms")},
     })

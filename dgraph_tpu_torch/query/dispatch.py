@@ -14,8 +14,8 @@ to this dispatcher, which:
      through the hand-written kernels (ops/setop_rows.py, and the
      member sweep with its compaction for intersect rows of <= 128,
      ops/member_sweep.py), union through ops/setops.py; operands go up in
-     one copy through a pinned buffer of the calling thread, are padded
-     on the device, and the results come back in one copy,
+     one copy through pinned memory, are padded on the device, and the
+     results come back in one copy,
   4. keeps tiny batches on the host (native C++ loops), where moving the
      operands to the card costs more than the work,
   5. row-shards a giant shared operand over the dispatcher's device mesh
@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import threading
 from collections import OrderedDict
+from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -66,8 +67,6 @@ _MIN_PAD = 8
 _SWEEP_MAX_PA = member_sweep.LANE
 _LO = np.uint64(0xFFFFFFFF)
 _HI_SHIFT = np.uint64(32)
-# this thread's pinned staging buffers (up, down), reused across calls
-_STAGE = threading.local()
 
 
 def _planner_enabled() -> bool:
@@ -237,47 +236,34 @@ def _halves(flat: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return words[:, 0], words[:, 1]
 
 
-def _pinned(slot: str, words: int):
-    """This thread's pinned int32 host buffer `slot` of at least `words`
-    words, and the event of its last upload (None for downloads)."""
-    got = getattr(_STAGE, slot, None)
-    if got is None or got[0].numel() < words:
-        buf = torch.empty((_pow2(words),), dtype=torch.int32, pin_memory=True)
-        got = (buf, torch.cuda.Event() if slot == "up" else None)
-        setattr(_STAGE, slot, got)
-    return got
-
-
 def _stage(dev: torch.device, parts: Sequence[np.ndarray]) -> List[torch.Tensor]:
     """Host arrays of 32-bit words (uid bits, lengths) on `dev`, as int32,
-    in one copy: through this thread's pinned buffer on a card, which is
-    reused once its last upload is done."""
+    in one copy: through a pinned block on a card. PyTorch's caching host
+    allocator pools the blocks and reuses one only once its copy is done."""
     parts = [np.ascontiguousarray(p).view(np.int32) for p in parts]
     sizes = [p.size for p in parts]
     total = sum(sizes)
     if dev.type != "cuda":
         flat = torch.from_numpy(np.concatenate(parts) if parts else np.zeros(0, np.int32))
         return list(torch.split(flat, sizes))
-    buf, done = _pinned("up", total)
-    done.synchronize()
+    buf = torch.empty((total,), dtype=torch.int32, pin_memory=True)
     if total:
-        np.concatenate(parts, out=buf[:total].numpy())
+        np.concatenate(parts, out=buf.numpy())
     flat = torch.empty((total,), dtype=torch.int32, device=dev)
-    flat.copy_(buf[:total], non_blocking=True)
-    done.record()
+    flat.copy_(buf, non_blocking=True)
     return list(torch.split(flat, sizes))
 
 
 def _fetch(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
     """int32 device tensors back to the host in one copy, as uint32 numpy
-    arrays of their shapes. On a card they are views of this thread's
-    pinned buffer, valid until its next fetch: copy what is kept."""
+    arrays of their shapes, owned by the caller (on a card, views of a
+    pinned block of their own)."""
     flat = torch.cat([t.reshape(-1) for t in tensors])
     if flat.device.type == "cuda":
-        buf, _ = _pinned("down", flat.numel())
-        buf[: flat.numel()].copy_(flat, non_blocking=True)
+        buf = torch.empty((flat.numel(),), dtype=torch.int32, pin_memory=True)
+        buf.copy_(flat, non_blocking=True)
         torch.cuda.current_stream(flat.device).synchronize()
-        host = buf[: flat.numel()].numpy()
+        host = buf.numpy()
     else:
         host = flat.numpy()
     host = host.view(np.uint32)
@@ -301,6 +287,55 @@ def _pad_dev(vals: torch.Tensor, lens: torch.Tensor, width: int) -> torch.Tensor
         start = torch.cumsum(lens, 0) - lens
         out[row, torch.arange(m, device=vals.device) - start[row]] = vals
     return out
+
+
+@dataclass(eq=False)
+class _Segment:
+    """One hi-32 segment of a shared-b run: its sub-rows (indices into the
+    cut), their padded width and lengths, b's words in it, the cache keys
+    of both operands, and their tensors on the device, then the result."""
+
+    hi: int
+    subs: np.ndarray
+    pa: int
+    lens: np.ndarray
+    b32: np.ndarray
+    rows_key: Optional[tuple]
+    b_key: Optional[tuple]
+    A: Optional[torch.Tensor] = None
+    LA: Optional[torch.Tensor] = None
+    B: Optional[torch.Tensor] = None
+    LB: Optional[torch.Tensor] = None
+    out: object = None
+    cnt: object = None
+
+
+def _assemble(flat, offs, hi, starts, kept, segs, through):
+    """The (flat, offs) result of a shared-b run from each segment's
+    (out, cnt) on the host and the segments passed through whole: sub-row
+    i keeps its first kept[i] words, joined in row and hi order."""
+    n = len(offs) - 1
+    out_at = np.zeros((len(starts) + 1,), np.int64)
+    np.cumsum(kept, out=out_at[1:])
+    res = np.empty((int(out_at[-1]),), np.uint64)
+    for s in segs:  # the kept words alone: sub-row i's first cnt[i]
+        cnt = s.cnt.astype(np.int64)
+        sub = np.repeat(np.arange(len(cnt)), cnt)
+        col = np.arange(len(sub)) - (np.cumsum(cnt) - cnt)[sub]
+        res[out_at[s.subs][sub] + col] = (
+            s.out[sub, col].astype(np.uint64) | (np.uint64(s.hi) << _HI_SHIFT)
+        )
+    if through:
+        e = np.flatnonzero(np.isin(hi, np.array(through, np.uint32)))
+        sub = np.searchsorted(starts, e, side="right") - 1
+        res[out_at[sub] + e - starts[sub]] = flat[e]
+    res_offs = np.zeros((n + 1,), np.int64)
+    sub_row = np.searchsorted(offs, starts, side="right") - 1
+    np.cumsum(
+        np.bincount(sub_row, weights=kept, minlength=n).astype(np.int64),
+        out=res_offs[1:],
+    )
+    return res, res_offs
 
 
 class SetOpDispatcher:
@@ -548,7 +583,6 @@ class SetOpDispatcher:
         N = flat.size
         if not N:
             return flat, offs
-        dev = self._dev()
         lo, hi = _halves(flat)
         # a sub-row starts where a row starts or the hi word changes
         cut = np.zeros((N,), bool)
@@ -568,11 +602,9 @@ class SetOpDispatcher:
             and all(t is not None for t in row_tokens)
             and len(set(seg_his.tolist()) | set(b_his.tolist())) == 1
         )
-        rows_key = tuple(row_tokens) if stack else None
         kept = np.zeros((len(starts),), np.int64)
         through = []  # segments b lacks, passed through whole (difference)
-        groups = []  # one a segment that runs on the device
-        uploads = []  # (group, its field, host array)
+        segs: List[_Segment] = []  # segments that run on the device
         for h in seg_his:
             subs = np.flatnonzero(sub_hi == h)
             k = int(np.searchsorted(b_his, h))
@@ -583,65 +615,52 @@ class SetOpDispatcher:
                 continue
             lens = sub_len[subs].astype(np.int32)
             b32 = (b[b_at[k] : b_at[k] + b_n[k]] & _LO).astype(np.uint32)
-            g = {"subs": subs, "pa": _pow2(int(lens.max()))}
-            g["rows_tok"] = ("rows", int(h), g["pa"], rows_key) if stack else None
-            g["b_tok"] = None if b_token is None else ("b", b_token, int(h), _pow2(len(b32)))
-            got = g["rows_tok"] and self.device_cache.get(g["rows_tok"])
+            pa = _pow2(int(lens.max()))
+            segs.append(_Segment(
+                int(h), subs, pa, lens, b32,
+                ("rows", int(h), pa, tuple(row_tokens)) if stack else None,
+                None if b_token is None else ("b", b_token, int(h), _pow2(len(b32))),
+            ))
+        self._segment_operands(segs, lo, hi, row_tokens, b_token)
+        for s in segs:
+            s.out, s.cnt = self._batch_fn(op, s.pa)(s.A, s.LA, s.B, s.LB)
+        got = _fetch([t for s in segs for t in (s.out, s.cnt)]) if segs else []
+        for s, out, cnt in zip(segs, got[0::2], got[1::2]):
+            s.out, s.cnt = out, cnt
+            kept[s.subs] = cnt
+        return _assemble(flat, offs, hi, starts, kept, segs, through)
+
+    def _segment_operands(self, segs, lo, hi, row_tokens, b_token):
+        """Each segment's padded rows (A, LA) and b's segment (B, LB) on
+        the device: from the DeviceCache, else staged in one copy for all
+        segments and cached where the segment has a key."""
+        for s in segs:
+            got = s.rows_key and self.device_cache.get(s.rows_key)
             if got:
-                g["A"], g["LA"] = got
-            else:
-                uploads += [(g, "A", lo[hi == h]), (g, "LA", lens)]
-            got = g["b_tok"] and self.device_cache.get(g["b_tok"])
+                s.A, s.LA = got
+            got = s.b_key and self.device_cache.get(s.b_key)
             if got:
-                g["B"], g["LB"] = got
-            else:
-                uploads += [(g, "B", b32), (g, "LB", np.array([len(b32)], np.int32))]
-            groups.append((int(h), g))
-        for (g, field, _), t in zip(uploads, _stage(dev, [u[2] for u in uploads])):
-            g[field] = t
-            g["new_" + field] = True
-        # what is cached is cloned out of the staging block, which it
-        # would otherwise keep alive
-        for h, g in groups:
-            if g.get("new_A"):
-                g["A"] = _pad_dev(g["A"], g["LA"], g["pa"])
-                if g["rows_tok"]:
-                    g["LA"] = g["LA"].clone()
-                    self.device_cache.put(
-                        g["rows_tok"], [t[0] for t in row_tokens], (g["A"], g["LA"]),
-                        4 * (g["A"].numel() + g["LA"].numel()),
-                    )
-            if g.get("new_B") and g["b_tok"]:
-                g["B"], g["LB"] = g["B"].clone(), g["LB"].clone()
+                s.B, s.LB = got
+        rows_up = [s for s in segs if s.A is None]
+        b_up = [s for s in segs if s.B is None]
+        staged = iter(_stage(self._dev(), [x for s in rows_up for x in (lo[hi == s.hi], s.lens)]
+                             + [x for s in b_up for x in (s.b32, np.int32([len(s.b32)]))]))
+        # what is cached is cloned out of the one upload, which it would
+        # otherwise keep alive
+        for s in rows_up:
+            vals, s.LA = next(staged), next(staged)
+            s.A = _pad_dev(vals, s.LA, s.pa)
+            if s.rows_key:
+                s.LA = s.LA.clone()
                 self.device_cache.put(
-                    g["b_tok"], [b_token[0]], (g["B"], g["LB"]), 4 * (g["B"].numel() + 1)
+                    s.rows_key, [t[0] for t in row_tokens], (s.A, s.LA),
+                    4 * (s.A.numel() + s.LA.numel()),
                 )
-            g["out"], g["cnt"] = self._batch_fn(op, g["pa"])(g["A"], g["LA"], g["B"], g["LB"])
-        got = _fetch([t for _, g in groups for t in (g["out"], g["cnt"])]) if groups else []
-        for (_, g), out, cnt in zip(groups, got[0::2], got[1::2]):
-            g["out"], g["cnt"] = out, cnt
-            kept[g["subs"]] = cnt
-        out_at = np.zeros((len(starts) + 1,), np.int64)
-        np.cumsum(kept, out=out_at[1:])
-        res = np.empty((int(out_at[-1]),), np.uint64)
-        for h, g in groups:  # the kept words alone: sub-row i's first cnt[i]
-            cnt = g["cnt"].astype(np.int64)
-            sub = np.repeat(np.arange(len(cnt)), cnt)
-            col = np.arange(len(sub)) - (np.cumsum(cnt) - cnt)[sub]
-            res[out_at[g["subs"]][sub] + col] = (
-                g["out"][sub, col].astype(np.uint64) | (np.uint64(h) << _HI_SHIFT)
-            )
-        if through:
-            e = np.flatnonzero(np.isin(hi, np.array(through, np.uint32)))
-            sub = np.searchsorted(starts, e, side="right") - 1
-            res[out_at[sub] + e - starts[sub]] = flat[e]
-        res_offs = np.zeros((n + 1,), np.int64)
-        sub_row = np.searchsorted(offs, starts, side="right") - 1
-        np.cumsum(
-            np.bincount(sub_row, weights=kept, minlength=n).astype(np.int64),
-            out=res_offs[1:],
-        )
-        return res, res_offs
+        for s in b_up:
+            s.B, s.LB = next(staged), next(staged)
+            if s.b_key:
+                s.B, s.LB = s.B.clone(), s.LB.clone()
+                self.device_cache.put(s.b_key, [b_token[0]], (s.B, s.LB), 4 * (s.B.numel() + 1))
 
     def _mesh(self):
         """The dispatcher's device mesh (parallel/mesh.py), on its device."""
