@@ -13,16 +13,24 @@ Phases, each of which fails the run when it fails:
      lengths on both sides of the search/stream switch, and the sentinel
      cases, with the kernel, plain and library times, the byte bound and
      how many rows took each regime (`member_sweep_crossover.py` measures
-     where the regimes cross);
+     where the regimes cross); (3b) setop_rows (K2 + K3) the same way, in
+     its padded and its ragged form (`setop_grid`): every row kind, then
+     timed shapes up to (b)'s whole level and (d)'s difference, each
+     ragged call twice back to back;
   4. the main path: an embedded `Server(device="cuda")` loads a 3-level
      fan-out graph (1 -> 100 -> 10k -> 1M edges, the level-3 pool split
      across the 2^32 uid segment boundary, a 1%-hot `tag` on every level-3
      node) through its own mutations and answers four DQL reads with the
      device path forced and the member sweep on. Every answer must equal
-     the port's host path and an independent numpy reference, and the
-     member sweep must have launched during query (b);
-  5. K1 once more, on the inputs the main path gave it, after checking
-     that they meet its precondition (rows sorted as uint32);
+     the port's host path and an independent numpy reference; (b)'s
+     filtered level must be one setop_rows launch over its ragged buffer
+     (no K1), a warm (b) must bring back at most 0.5 MB, and (d)'s
+     difference must be one launch. Then K1's read: (c) over a small graph
+     with a rare hot tag (`k1_read`), whose AND chain reaches the member
+     sweep through the pair path, equal to the host path and numpy;
+  5. K1 once more, on the inputs K1's read gave it, after checking
+     that they meet its precondition (rows sorted as uint32), and
+     setop_rows on every shape phase 4 gave it;
   6. the vector kernels against their plain PyTorch versions over a grid:
      KV1 (`vector_topk`, distance epilogue + masked top-k) bit for bit on
      two calls back to back (its tickets and histograms reset
@@ -53,19 +61,20 @@ Phases, each of which fails the run when it fails:
      numpy), then runs (u1) 8 threads x 250
      email upserts (Dgraph's Upsert Block example; each email must end
      with one uid), (u2) an upsert whose query block is query (b)'s
-     filtered level 3 (K1 must launch; `has(hot_seen)` must equal numpy)
+     filtered level 3 (setop_rows must launch; `has(hot_seen)` must equal
+     numpy)
      and (u3) the bank in JSON, 8 threads x 125 transfers with a reader
      checking the total at every snapshot. It closes the store, opens it
      again in a new Server, times the recovery, and every answer of
      before, 16 `similar_to` reads among them, must come back byte for
-     byte (K1 and KV1 must launch), with a fresh blank node above every
+     byte (setop_rows and KV1 must launch), with a fresh blank node above every
      recovered uid;
   9. the serving front, on phase 4's and phase 7's servers (kept alive
      for it): (9b) the plan cache over (b)'s filtered level rooted at
      each of 50 level-1 uids, with PLAN_CACHE_SIZE 512 and 0 (answers
      equal and equal to numpy); (9d) `query_rdf` of (a) and (b), device path ==
-     host path byte for byte, one triple per edge of the JSON answer;
-     (9c) the result cache over (a)-(d) (hits equal misses), then one
+     host path byte for byte, one triple per edge of the JSON answer
+     (setop_rows must launch in (b)'s); (9c) the result cache over (a)-(d) (hits equal misses), then one
      committed edge that the next (b), a miss, must show; (9a) 16 client
      threads x 32 plain `similar_to` reads on `emb` (IVF) and `emb_small`
      (brute) at BATCH_WINDOW_US 0 and 200, every answer equal to the same
@@ -111,7 +120,7 @@ Phases, each of which fails the run when it fails:
      pool of 20,000: 121,010 N-Quads; `--cluster-only` loads all
      1,210,100) through cluster transactions,
      `child` and `tag` on different groups, and answers (a)-(d) equal to
-     the host path and numpy (K1 must launch in (b)), with each query's
+     the host path and numpy (setop_rows must launch in (b)), with each query's
      RPCs; no replica may hold a CUDA context; (11b) the leader of
      `tag`'s group is SIGKILLed, a flip of 100 tags commits, (b) equals
      numpy with the flips, the victim restarts, applies past the commit
@@ -133,8 +142,8 @@ Phases, each of which fails the run when it fails:
      210,101 nodes through `/mutate`, then an SDL mapping `Node` and `Doc`
      onto the existing predicates through `/admin/schema/graphql`, which
      must rebuild no index; (12b) query (b) as `queryNode` and `getNode`,
-     equal to numpy and to (b) as DQL over the same front (K1 must
-     launch; its dispatcher entry is reported); (12c) `aggregateNode` of
+     equal to numpy and to (b) as DQL over the same front (setop_rows
+     must launch; its dispatcher entry is reported); (12c) `aggregateNode` of
      the hot nodes and a page of 10; (12d) 16 `querySimilarDocByEmbedding`
      reads on `emb_small` (brute, KV1: the exact top-k outside near-ties)
      and on `emb` (IVF, KV2 and KV1: recall@10 at least 0.90), with
@@ -201,8 +210,9 @@ U32 = 0xFFFFFFFF
 QUERIES = {
     # plain 3-level traversal, counts at the leaves
     "a": "{ q(func: uid(0x1)) { child { child { c: count(child) } } } }",
-    # level-3 filter: rows straddle 2^32, so the filter intersect goes
-    # through the bucketed pair path and the member sweep
+    # level-3 filter: rows straddle 2^32, so each row is cut into its two
+    # segments' sub-rows, all searched against the filter's two segments
+    # in one setop_rows launch over the ragged level
     "b": '{ q(func: uid(0x1)) { child { child { uid child @filter('
          'eq(tag, "hot")) { uid } } } } }',
     # AND filter chain
@@ -322,8 +332,12 @@ def extract(name, data):
 
 def _shape_key(args):
     """(n, pa, pb, "shared" or "paired") of a set op's (A, LA, B, LB);
-    (n, pa) of a compaction's (A, keep)."""
+    (n, pa) of a compaction's (A, keep); (m, N, nB, r, "ragged") of a
+    ragged set op's (A, offs, rid, B, ranges)."""
     A = args[0]
+    if len(args) == 5:
+        return (int(args[1].numel()) - 1, int(A.numel()), int(args[3].numel()),
+                int(args[4].shape[0]), "ragged")
     if len(args) == 2:
         return (int(A.shape[0]), int(A.shape[1]))
     B = args[2]
@@ -372,17 +386,121 @@ class _Capture:
             setattr(self.module, n, fn)
 
 
-SETOP_WRAPPERS = ("intersect_batch", "difference_batch", "compact_batch")
+SETOP_WRAPPERS = ("intersect_batch", "difference_batch", "compact_batch",
+                  "intersect_ragged", "difference_ragged")
+
+
+# the XLA programs the port still runs as plain torch: setops' union,
+# merge_sorted, intersect_many and index_of (K4-K7) and the executor's
+# device top-k of a `first:` ordering (K11)
+PLAIN_OPS = ("union", "merge_sorted", "intersect_many", "index_of", "_order_uids_topk")
+
+
+class _PlainOps:
+    """Counts the calls of PLAIN_OPS (K11: those that reached the device
+    sort) and keeps each one's largest input, cloned (K11: the uid count
+    and k), delegating every call unchanged."""
+
+    def __enter__(self):
+        from dgraph_tpu_torch.ops import setops
+        from dgraph_tpu_torch.query import subgraph
+
+        self.calls, self.largest = {}, {}
+        self.real = [(setops, n, getattr(setops, n)) for n in PLAIN_OPS[:4]]
+        self.real.append((subgraph.Executor, PLAIN_OPS[4], subgraph.Executor._order_uids_topk))
+        for owner, name, real in self.real:
+            setattr(owner, name, self._wrap(name, real))
+        return self
+
+    def _wrap(self, name, real):
+        import torch
+
+        def call(*args, **kw):
+            got = real(*args, **kw)
+            if name == PLAIN_OPS[4]:
+                if got is None:
+                    return got
+                kept = (len(args[-1]), len(got))  # uids sorted on the card, k kept
+                size = kept[0]
+            else:
+                kept = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+                size = sum(a.numel() for a in args if torch.is_tensor(a))
+            self.calls[name] = self.calls.get(name, 0) + 1
+            if size > self.largest.get(name, (-1,))[0]:
+                self.largest[name] = (size, kept)
+            return got
+
+        return call
+
+    def __exit__(self, *exc):
+        for owner, name, real in self.real:
+            setattr(owner, name, real)
+
+
+def plain_op_input(name, device="cuda", seed=0):
+    """An input for a PLAIN_OPS program that no path of the run called, at
+    (b)'s scale: union over 10,000 pair rows of 64 and 1,024 (a pow2
+    bucket), the k-way chains over 3 lists of 100,000, index_of of one uid
+    a row in 10,000 rows of 128, K11 over 100,000 uids for a first: 10."""
+    import torch
+
+    gen = torch.Generator(device).manual_seed(seed)
+
+    def rows(n, w):
+        return torch.randint(0, 1 << 32, (n, w), generator=gen, device=device).sort(-1).values
+
+    def full(n, v):
+        return torch.full((n,), v, dtype=torch.int64, device=device)
+
+    if name == "union":
+        return rows(10_000, 64), full(10_000, 64), rows(10_000, 1024), full(10_000, 1024)
+    if name in ("merge_sorted", "intersect_many"):
+        return rows(3, 100_000), full(3, 100_000)
+    if name == "index_of":
+        a = rows(10_000, 128)
+        return a, full(10_000, 128), a[:, 5].contiguous()
+    return 100_000, 10
+
+
+def plain_op_measure(name, args, reps=5):
+    """Events ms of one call of a PLAIN_OPS program on its largest served
+    input, and its byte bound: the valid u32 words read once and the
+    kept ones written once (K11: the float32 scores read, the k indices
+    written)."""
+    import torch
+
+    from dgraph_tpu_torch.ops import setops
+
+    if name == PLAIN_OPS[4]:
+        n, k = args
+        x = torch.rand(n, device="cuda")
+        fn = lambda: torch.sort(x, descending=True, stable=True).indices[:k].cpu()  # noqa: E731
+        nbytes = 4 * n + 8 * k
+    else:
+        fn = lambda: getattr(setops, name)(*args)  # noqa: E731
+        out, cnt = fn() if name != "index_of" else (None, None)
+        if name == "union":
+            a, la, b, lb = args
+            nbytes = 4 * int(la.sum() + lb.sum()) + 4 * int(cnt.sum()) + 12 * la.numel()
+        elif name == "index_of":
+            a, la, u = args
+            nbytes = 4 * int(torch.as_tensor(u).numel()) * 2 + 32 * a.shape[0]
+        else:
+            lists, lengths = args
+            nbytes = 4 * int(torch.as_tensor(lengths).sum()) + 4 * int(cnt.sum())
+    return {"ms": _events_ms(fn, reps), "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
 
 
 class _Copies:
     """Counts the bytes the dispatcher copies to the card (`_stage`) and
-    back (`_fetch`), delegating every call unchanged."""
+    back (`_fetch`), and times each read back on the host clock (it ends
+    in a sync), delegating every call unchanged."""
 
     def __enter__(self):
         from dgraph_tpu_torch.query import dispatch
 
-        self.d, self.up, self.down = dispatch, 0, 0
+        self.d, self.up, self.down, self.fetch_ms = dispatch, 0, 0, []
         self.real = dispatch._stage, dispatch._fetch
 
         def stage(dev, parts):
@@ -391,7 +509,10 @@ class _Copies:
 
         def fetch(tensors):
             self.down += sum(t.numel() * t.element_size() for t in tensors)
-            return self.real[1](tensors)
+            t0 = time.perf_counter()
+            got = self.real[1](tensors)
+            self.fetch_ms.append((time.perf_counter() - t0) * 1e3)
+            return got
 
         dispatch._stage, dispatch._fetch = stage, fetch
         return self
@@ -401,6 +522,14 @@ class _Copies:
 
     def bytes(self):
         return self.up, self.down
+
+
+def setops_count(on_card):
+    """setop_rows launches so far on a card, its plain versions' calls on
+    the CPU: every (b)-like read runs its filtered level through it."""
+    from dgraph_tpu_torch.ops import setop_rows
+
+    return setop_rows.LAUNCHES if on_card else setop_rows.PLAIN_CALLS
 
 
 def _run_query(server, q):
@@ -463,9 +592,10 @@ def serve(device="cuda", fanout=100, pool=200_000, reps=3, log=print, profile=()
     """Load the fan-out graph into a port Server on `device` and answer
     QUERIES on the forced device path (member sweep on) and on the host
     path; every answer is held to the numpy reference. Returns the
-    measurements, the kernel counts of the counted run and the captured
-    member-sweep inputs, and with `keep` the server and the graph (phase
-    9 serves them again). Queries named in `profile` are profiled on the
+    measurements, the kernel counts and setop_rows calls of the counted
+    run, its copies, the captured setop_rows inputs and the plain-torch
+    programs' calls, and with `keep` the server and the graph (phase 9
+    serves them again). Queries named in `profile` are profiled on the
     device path afterwards (card only)."""
     import torch
 
@@ -500,22 +630,31 @@ def serve(device="cuda", fanout=100, pool=200_000, reps=3, log=print, profile=()
         setop_rows.LAUNCHES = setop_rows.PLAIN_CALLS = 0
         answers = {}
         per_query, setop_per_query, copies = {}, {}, {}
+        calls, tiles = {}, {}
         with _Capture(member_sweep) as cap, _Capture(setop_rows, SETOP_WRAPPERS) as scap, \
-                _Copies() as cp:
+                _Copies() as cp, _PlainOps() as pops:
             for name, q in QUERIES.items():
-                c0, s0, b0 = count(), setop_count(), cp.bytes()
+                c0, s0, b0, n0 = count(), setop_count(), cp.bytes(), len(scap.shapes)
+                g0 = setop_rows.GLOBAL_TILES
                 answers[name] = _run_query(server, q)
                 per_query[name] = count() - c0
                 setop_per_query[name] = setop_count() - s0
                 copies[name] = {"cold": [b - a for a, b in zip(b0, cp.bytes())]}
+                calls[name] = {w: [k[1:] for k in scap.shapes[n0:] if k[0] == w]
+                               for w in SETOP_WRAPPERS if any(k[0] == w for k in scap.shapes[n0:])}
+                tiles[name] = setop_rows.GLOBAL_TILES - g0
         out["launches"] = member_sweep.LAUNCHES
         out["plain_calls"] = member_sweep.PLAIN_CALLS
         out["setop_launches"] = setop_rows.LAUNCHES
         out["sweep_per_query"] = per_query
         out["setop_per_query"] = setop_per_query
+        # each query's setop_rows calls by wrapper, at their shapes, and the
+        # tiles of them that searched b in global memory
+        out["setop_calls"] = calls
+        out["global_tiles"] = tiles
         out["sweep_shapes"] = sorted(set(cap.shapes))
-        out["captured"] = cap.args
         out["setop_captured"] = scap.by_shape
+        out["plain_ops"] = (pops.calls, pops.largest)
         # bytes (to the card, back) of each query's first and of a warm read
         out["copies"] = copies
         if on_card:
@@ -526,6 +665,7 @@ def serve(device="cuda", fanout=100, pool=200_000, reps=3, log=print, profile=()
             with _Copies() as cp:  # one warm read's copies
                 _run_query(server, q)
             copies[name]["warm"] = list(cp.bytes())
+            copies[name]["fetch_ms"] = cp.fetch_ms  # each read back, host clock
             ms_dev = []
             for _ in range(reps):
                 t = time.perf_counter()
@@ -555,6 +695,47 @@ def serve(device="cuda", fanout=100, pool=200_000, reps=3, log=print, profile=()
     if keep:
         out["server"], out["graph"] = server, g
     return out
+
+
+# the graph of K1's served read: a pool of 20,000 with one node in 200 hot,
+# about 50 hot uids a segment
+K1_GRAPH = {"fanout": 30, "pool": 20_000, "hot_every": 200}
+
+
+def k1_read(device="cuda", log=print):
+    """The served read that reaches K1: query (c) over a small graph with a
+    rare hot tag (K1_GRAPH), whose AND chain crosses 2^32 with <= 128 of a
+    segment on its small side, so the dispatcher's pair path runs it
+    through the member sweep and its compaction (`_run_bucket`), as the
+    reference's Pallas branch does. Its answer must equal the host path's
+    and numpy's; K1 must launch. Returns K1's launches, the shapes it
+    took and its largest input, cloned."""
+    from dgraph_tpu_torch.api.server import Server
+    from dgraph_tpu_torch.ops import member_sweep
+    from dgraph_tpu_torch.query import dispatch
+
+    g = make_graph(**K1_GRAPH)
+    server = Server(device=device)
+    server.slow_query_ms = float("inf")
+    load_graph(server, g)
+    dispatch.DISPATCHER.device_cache.clear()  # no operand of another store
+    on_card = device != "cpu"
+    with forced_device(), _Capture(member_sweep) as cap:
+        c0 = member_sweep.LAUNCHES if on_card else member_sweep.PLAIN_CALLS
+        got = _run_query(server, QUERIES["c"])
+        sweeps = (member_sweep.LAUNCHES if on_card else member_sweep.PLAIN_CALLS) - c0
+    with forced_device(False):
+        host = _run_query(server, QUERIES["c"])
+    dispatch.DISPATCHER.device_cache.clear()
+    if got != host:
+        raise AssertionError("K1's read (c): device path != host path")
+    if extract("c", json.loads(got)) != expected(g, "b"):
+        raise AssertionError("K1's read (c): != numpy reference")
+    if sweeps < 1:
+        raise AssertionError("K1's read (c): the member sweep did not launch")
+    log(f"K1's read: (c) over make_graph(**{K1_GRAPH}) ({len(g['hot'])} hot): device == "
+        f"host == numpy; K1 {sweeps} launches at (n, pa, pb) {sorted(set(cap.shapes))}")
+    return {"launches": sweeps, "shapes": sorted(set(cap.shapes)), "captured": cap.args}
 
 
 # ---------------------------------------------------------------------------
@@ -964,25 +1145,100 @@ def setop_rows_case(n, pa, pb, seed, kind="random", shared=False):
     return bits(A), LA.astype(np.int32), B, LB.astype(np.int32)
 
 
+def setop_ragged_case(lens, blens, seed, kind="random", shared=True):
+    """Ragged rows for setop_rows, made with numpy from `seed`: rows of
+    `lens` words back to back in A (offsets offs) against the ranges of
+    `blens` words of one B (a table of (start, length) pairs); row i
+    searches range rid[i], drawn at random when `shared`, else range
+    i % len(blens) (one range a row when they are as many). Kinds as in
+    SETOP_KINDS ("la0" and "lb0" empty every other row or range). Returns
+    int32 numpy arrays (A, offs, rid, B, ranges), uids as their bits."""
+    rng = np.random.default_rng(seed)
+    lens, blens = np.array(lens, np.int64), np.array(blens, np.int64)
+    if kind == "la0":
+        lens[::2] = 0
+    if kind == "lb0":
+        blens[::2] = 0
+    m, r = len(lens), len(blens)
+    lo, hi = ((1 << 31) - 4096, (1 << 31) + 4096) if kind == "sign" else (0, 1 << 32)
+    top = np.uint64(32)
+    bid = np.repeat(np.arange(r, dtype=np.uint64), blens)
+    bval = rng.integers(lo, hi, size=bid.size, dtype=np.uint64)
+    if kind == "none":  # b even, A odd
+        bval &= ~np.uint64(1)
+    B = np.sort((bid << top) | bval) & np.uint64(U32)  # each range sorted
+    start = np.zeros(r, np.int64)
+    np.cumsum(blens[:-1], out=start[1:])
+    if kind == "max":
+        B[(start + blens - 1)[blens > 0]] = U32
+    rid = rng.integers(0, r, size=m) if shared else np.arange(m) % r
+    aid = np.repeat(np.arange(m), lens)
+    own = rid[aid]
+    fresh = rng.integers(lo, hi, size=aid.size, dtype=np.uint64)
+    if kind == "none":
+        fresh |= np.uint64(1)
+    from_b = fresh
+    if B.size:
+        pick = start[own] + rng.integers(0, 1 << 62, size=aid.size) % np.maximum(blens[own], 1)
+        from_b = B[np.minimum(pick, B.size - 1)]
+    coin = rng.random(aid.size) < {"all": 2.0, "none": -1.0}.get(kind, 0.5)
+    vals = np.where(coin & (blens[own] > 0), from_b, fresh)
+    A = np.sort((aid.astype(np.uint64) << top) | vals) & np.uint64(U32)  # each row sorted
+    offs = np.zeros(m + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    if kind == "max":
+        A[offs[1:][lens > 0] - 1] = U32
+
+    def bits(x):
+        return np.ascontiguousarray(x.astype(np.uint32)).view(np.int32)
+
+    return (bits(A), offs.astype(np.int32), rid.astype(np.int32), bits(B),
+            np.stack([start, blens], 1).astype(np.int32))
+
+
 def setop_plain(name):
     """The plain PyTorch version of setop_rows wrapper `name`."""
     from dgraph_tpu_torch.ops import setop_rows
 
     if name == "compact_batch":
         return setop_rows.compact_batch_plain
-    return lambda *args: setop_rows.setop_batch_plain(name.split("_")[0], *args)
+    op = name.split("_")[0]
+    if name.endswith("_ragged"):
+        return lambda *args: setop_rows.setop_ragged_plain(op, *args)
+    return lambda *args: setop_rows.setop_batch_plain(op, *args)
+
+
+def ragged_keys(A, offs, rid, B, ranges):
+    """Keys (range id << 32) | uid of A's words (each keyed by its row's
+    range) and of B's ranges in table order, and the index in B of each
+    key of B."""
+    import torch
+
+    dev = A.device
+    lens = (offs[1:] - offs[:-1]).to(torch.int64)
+    row = torch.repeat_interleave(torch.arange(lens.numel(), device=dev), lens,
+                                  output_size=A.numel())
+    start, length = ranges[:, 0].to(torch.int64), ranges[:, 1].to(torch.int64)
+    rr = torch.repeat_interleave(torch.arange(ranges.shape[0], device=dev), length)
+    at = torch.arange(rr.numel(), device=dev) - (torch.cumsum(length, 0) - length)[rr] + start[rr]
+    return (rid.to(torch.int64)[row] << 32) | _to_i64(A), (rr << 32) | _to_i64(B)[at], at
 
 
 def library_setop(name, *args):
     """The yardstick, timed here and called nowhere in the port: one
     torch.isin and one torch.masked_select over the same rows (a b per
-    row searched as keys row * 2^32 + uid, made beforehand). Returns the
-    call; it gives the kept uids of every row, flat."""
+    row, or a range of B a row, searched as keys row or range * 2^32 +
+    uid, made beforehand). Returns the call; it gives the kept uids of
+    every row, flat."""
     import torch
 
     if name == "compact_batch":
         A, keep = args
         return lambda: torch.masked_select(A, keep)
+    invert = name.startswith("difference")
+    if name.endswith("_ragged"):
+        a, b, _ = ragged_keys(*args)
+        return lambda: torch.masked_select(args[0], torch.isin(a, b, invert=invert))
     A, LA, B, LB = args
     n, pa = A.shape
     valid = torch.arange(pa, device=A.device) < LA.unsqueeze(1)
@@ -992,18 +1248,46 @@ def library_setop(name, *args):
         rows = (torch.arange(n, device=A.device) << 32).unsqueeze(1)
         a = _to_i64(A) + rows
         b = (_to_i64(B) + rows)[torch.arange(B.shape[1], device=B.device) < LB.unsqueeze(1)]
-    invert = name == "difference_batch"
     return lambda: torch.masked_select(A, valid & torch.isin(a, b, invert=invert))
+
+
+def ragged_b_sector_bytes(A, offs, rid, B, ranges):
+    """b_sector_bytes for the ragged form: every distinct 32-byte sector
+    of B that holds, for a word of A, its equal element in its row's
+    range or, where the range has none, its neighbours there. Also
+    returns how many words of A the ranges hold."""
+    import torch
+
+    a, b, at = ragged_keys(A, offs, rid, B, ranges)
+    n = b.numel()
+    if not (n and a.numel()):
+        return 0, 0
+    p = torch.searchsorted(b, a)
+    pc, pm = p.clamp(max=n - 1), (p - 1).clamp(min=0)
+    eq = (p < n) & (b[pc] == a)
+    nxt = (p < n) & ((b[pc] >> 32) == (a >> 32))  # equal or next, same range
+    prv = ~eq & (p > 0) & ((b[pm] >> 32) == (a >> 32))
+    elems = torch.cat([at[pc[nxt]], at[pm[prv]]])
+    return 32 * int(torch.unique(elems // 8).numel()), int(eq.sum())  # B 32-byte aligned
 
 
 def setop_bound_ms(name, args):
     """Least time any correct method could take, in ms, and what bounds
-    it: the bytes. Read once: A's valid elements, LA and LB, and the
-    sectors of B a membership needs (b_sector_bytes), or for a
-    compaction the keep mask and the kept elements; written once: the
-    n * pa output words and the n counts. The compares, about log2(LB)
-    an element, take less time at 67 T/s than its 4 bytes at 3.35 TB/s."""
+    it: the bytes. Read once: A's valid elements, the lengths or offsets,
+    range ids and range table, and the sectors of B a membership needs,
+    or for a compaction the keep mask and the kept elements; written
+    once: the padded form's n * pa output words and n counts, the ragged
+    form's kept words and m + 1 offsets. The compares, about log2 of the
+    range an element, take less time at 67 T/s than its 4 bytes at
+    3.35 TB/s."""
     A = args[0]
+    if name.endswith("_ragged"):
+        _, offs, rid, _, ranges = args
+        sectors, held = ragged_b_sector_bytes(*args)
+        kept = held if name.startswith("intersect") else A.numel() - held
+        nbytes = (4 * A.numel() + 4 * offs.numel() + 4 * rid.numel() + 4 * ranges.numel()
+                  + sectors + 4 * kept + 4 * offs.numel())
+        return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
     n, pa = A.shape
     nbytes = 4 * n * pa + 4 * n
     if name == "compact_batch":
@@ -1015,31 +1299,57 @@ def setop_bound_ms(name, args):
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
+def _setop_words(name, res):
+    """A setop_rows result as what it answers: the padded form's (out,
+    cnt) as they are, the ragged form's out_off and its kept words alone
+    (head's last word, the tiles that searched global memory, apart)."""
+    if not name.endswith("_ragged"):
+        return res
+    out, head = res
+    return head[:-1], out[: int(head[-2])]
+
+
 def measure_setop(name, args, reps=5, timed=True):
     """setop_rows wrapper `name` against its plain version on `args`
-    (exact: mismatching words of out and cnt), and with `timed` the
-    kernel (events), device (trace), plain and library times and the
-    bound, in ms."""
+    (exact: mismatching words of out and cnt, or of out_off and the kept
+    words), and with `timed` the kernel (events), device (trace), plain
+    and library times and the bound, in ms. A ragged call is made twice
+    back to back and must give the same words both times."""
     import torch
 
     from dgraph_tpu_torch.ops import setop_rows
 
     fn, plain = getattr(setop_rows, name), setop_plain(name)
-    got, want = fn(*args), plain(*args)
+    raw = fn(*args)
+    got, want = _setop_words(name, raw), _setop_words(name, plain(*args))
+    ragged = name.endswith("_ragged")
+    if ragged:
+        again = _setop_words(name, fn(*args))
     torch.cuda.synchronize()
-    n, pa = args[0].shape
-    errs = [(_to_i64(g) - _to_i64(w)).abs() for g, w in zip(got, want)]
-    r = {"mismatches": int((got[0] != want[0]).sum()) + int((got[1] != want[1]).sum()),
+    bad = 0
+    for g, w in zip(got, want):
+        bad += int((g != w).sum()) if g.shape == w.shape else max(g.numel(), w.numel(), 1)
+    if ragged:
+        bad += sum(int((g != a).sum()) if g.shape == a.shape else max(g.numel(), 1)
+                   for g, a in zip(got, again))
+    errs = [(_to_i64(g) - _to_i64(w)).abs() for g, w in zip(got, want) if g.shape == w.shape]
+    r = {"mismatches": bad,
          "max_abs_err": float(max([float(e.max()) for e in errs if e.numel()] + [0.0]))}
+    if ragged:
+        r["global_tiles"] = int(raw[1][-1])
     if not timed:
         return r
     lib = library_setop(name, *args)
-    kept = want[0][torch.arange(pa, device=want[0].device) < want[1].unsqueeze(1)]
+    if ragged:
+        kept = want[1]
+    else:
+        pa = args[0].shape[1]
+        kept = want[0][torch.arange(pa, device=want[0].device) < want[1].unsqueeze(1)]
     bound, bound_by = setop_bound_ms(name, args)
     r.update({
         "library_agrees": bool(torch.equal(lib(), kept)),
         "ms": _events_ms(lambda: fn(*args), reps),
-        "device_ms": kernel_device_ms(lambda: fn(*args), name=setop_rows.kernel_names(pa)),
+        "device_ms": kernel_device_ms(lambda: fn(*args), name=setop_rows.kernel_names()),
         "device_trace": dict(LAST_TRACE),
         "plain_ms": _events_ms(lambda: plain(*args), max(3, reps // 2)),
         "library_ms": _events_ms(lib, reps),
@@ -1049,22 +1359,47 @@ def measure_setop(name, args, reps=5, timed=True):
     return r
 
 
-# (n, pa, pb) of the timed grid: (b)'s sub-rows against one segment's
-# filter, bucketed rows of one chunk and of three passes, and (d)'s long
-# rows against a long b
+# (n, pa, pb) of the padded form's timed grid: (b)'s sub-rows against one
+# segment's filter, bucketed rows of 64 and 128, longer rows, and (d)'s
+# long rows against a long b
 SETOP_GRID = [(20000, 64, 1024), (4096, 128, 65536), (1000, 129, 4096), (64, 4096, 65536),
               (2, 1 << 17, 1 << 17), (1, 1 << 20, 1 << 20)]
-# (n, pa, pb) of the row kinds' check: one query a row, one chunk, three
-# passes, two long rows
+# (n, pa, pb) of the row kinds' check: one query a row, rows of 8 and of
+# 129, two long rows
 SETOP_EDGE_SHAPES = [(1000, 1, 64), (1000, 8, 1024), (300, 129, 2000), (2, 1 << 17, 1 << 17)]
+
+
+def ragged_grid(seed=0):
+    """(label, row lengths, range lengths, shared) of the ragged form's
+    timed grid: (b)'s whole level (1M words in 20,000 sub-rows, each
+    row's two sub-rows against b's two segments of 1,000), (d)'s
+    difference (2 rows of 2^17, a range of 2^17 each), one row of 2^20
+    against 2^20, and 20,000 pairs of <= 64 against <= 512."""
+    rng = np.random.default_rng(seed)
+    return [
+        ("(b) level", rng.integers(0, 101, size=20000), [1000, 1000], True),
+        ("(d) difference", [1 << 17] * 2, [1 << 17] * 2, False),
+        ("one row of 2^20", [1 << 20], [1 << 20], False),
+        ("20,000 pairs", rng.integers(0, 65, size=20000), rng.integers(0, 513, size=20000), False),
+    ]
+
+
+# (label, row lengths, range lengths) of the ragged row kinds' check, each
+# with a shared and a paired table: rows of 0 and 1, many short rows
+# against two ranges, a long row among empty ones
+RAGGED_EDGE = [
+    ("rows of 0 and 1", [0, 1] * 2000, [50, 0, 3000]),
+    ("short rows", list(range(0, 200, 3)), [900, 1500]),
+    ("a long row among empty ones", [0] * 30 + [1 << 17] + [0] * 30, [1 << 16, 1 << 17]),
+]
 
 
 def setop_grid(device="cuda", log=print):
     """setop_rows against its plain version, exactly: every wrapper, both
-    forms of B, every row kind of SETOP_KINDS at two shapes, timed on
-    random rows at every shape of SETOP_GRID; then K1 with a shared B
-    (stride 0); then the forced-device dispatcher over rows across 2^32
-    against numpy."""
+    forms of B and both forms of the rows, every row kind of SETOP_KINDS
+    at the edge shapes, timed on random rows at every shape of SETOP_GRID
+    and ragged_grid; then K1 with a shared B (stride 0); then the
+    forced-device dispatcher over rows across 2^32 against numpy."""
     import torch
 
     from dgraph_tpu_torch.ops import member_sweep
@@ -1079,8 +1414,16 @@ def setop_grid(device="cuda", log=print):
                 for name in ("intersect_batch", "difference_batch"):
                     if measure_setop(name, args, timed=False)["mismatches"]:
                         raise AssertionError(f"{name} {kind} {shared} {(n, pa, pb)}: != plain")
+            for label, lens, blens in RAGGED_EDGE:
+                table = blens if shared else [blens[i % len(blens)] for i in range(len(lens))]
+                args = tensors(setop_ragged_case(lens, table, seed=len(lens), kind=kind,
+                                                 shared=shared))
+                for name in ("intersect_ragged", "difference_ragged"):
+                    if measure_setop(name, args, timed=False)["mismatches"]:
+                        raise AssertionError(f"{name} {kind} {shared} {label}: != plain")
     log(f"edge rows: intersect and difference equal to plain over {len(SETOP_KINDS)} row "
-        f"kinds x (n, pa, pb) {SETOP_EDGE_SHAPES} x (paired, shared)")
+        f"kinds x (n, pa, pb) {SETOP_EDGE_SHAPES} and ragged {[r[0] for r in RAGGED_EDGE]} "
+        "x (paired, shared); ragged calls equal twice back to back")
     for n, pa, pb in SETOP_GRID:
         for shared in (False, True):
             args = tensors(setop_rows_case(n, pa, pb, seed=n + pa + pb, shared=shared))
@@ -1093,6 +1436,24 @@ def setop_grid(device="cuda", log=print):
                     raise AssertionError(f"{name} {form} {(n, pa, pb)}: {r}")
                 log(f"{name} {form} n={n} pa={pa} pb={pb}: equal; " + _fmt(r))
             del args, keep
+    for i, (label, lens, blens, shared) in enumerate(ragged_grid()):
+        args = tensors(setop_ragged_case(lens, blens, seed=i, shared=shared))
+        for name in ("intersect_ragged", "difference_ragged"):
+            r = measure_setop(name, args)
+            if r["mismatches"] or not r["library_agrees"]:
+                raise AssertionError(f"{name} {label}: {r}")
+            log(f"{name} {label} (m={len(lens)}, N={args[0].numel()}, nB={args[3].numel()}): "
+                f"equal, twice; global-memory tiles {r['global_tiles']}; " + _fmt(r))
+        del args
+    # the compaction of K1's mask at the shape (b)'s level gave it when K1
+    # served (b): 10,000 rows of 128, 1% kept
+    A = tensors(setop_rows_case(10000, 128, 1, seed=7))[0]
+    keep = torch.rand(A.shape, device=device, generator=torch.Generator(device).manual_seed(7)) < 0.01
+    r = measure_setop("compact_batch", (A, keep))
+    if r["mismatches"] or not r["library_agrees"]:
+        raise AssertionError(f"compact_batch at (b)'s K1 mask: {r}")
+    log("compact_batch n=10000 pa=128, 1% kept ((b)'s former K1 mask): equal; " + _fmt(r))
+    del A, keep
     for kind in ("random", "max", "lb0"):
         args = tensors(setop_rows_case(20000, 64, 1024, seed=5, kind=kind, shared=True))
         if not torch.equal(member_sweep.membership_batch(*args),
@@ -1104,9 +1465,11 @@ def setop_grid(device="cuda", log=print):
 
 def dispatcher_across_segments(device="cuda", seed=4):
     """The forced-device dispatcher's three entries over rows with uids on
-    both sides of 2^32, against numpy: rows of <= 128 a segment (K1 and
-    its compaction) and longer ones (setop_rows, shared b), and a bucket
-    of pairs (setop_rows, a b per row)."""
+    both sides of 2^32, against numpy: rows against a shared b in its
+    ragged and list forms (one setop_rows launch over every segment),
+    and pairs, wide (setop_rows, one launch with a range a pair) and with
+    <= 128 of a segment on the small side (intersect: K1 and its
+    compaction, a bucket of padded shapes)."""
     from dgraph_tpu_torch.query import dispatch
 
     rng = np.random.default_rng(seed)
@@ -1133,11 +1496,12 @@ def dispatcher_across_segments(device="cuda", seed=4):
                     if not np.array_equal(g, w):
                         raise AssertionError(f"dispatcher {op} rows of {width} != numpy")
             pairs = [(straddle(20000), straddle(15000)) for _ in range(3)]
+            pairs += [(straddle(200), straddle(3000)) for _ in range(3)]
             for (a, b), g in zip(pairs, d.run_pairs(op, pairs)):
                 if not np.array_equal(g, np_op(a, b, assume_unique=True)):
                     raise AssertionError(f"dispatcher {op} pairs != numpy")
-    return ("dispatcher over rows across 2^32 (ragged, list, pairs; intersect and "
-            "difference): equal to numpy")
+    return ("dispatcher over rows across 2^32 (ragged, list, pairs wide and of <= 128 a "
+            "segment; intersect and difference): equal to numpy")
 
 
 def setop_shapes_equal(by_shape):
@@ -1180,12 +1544,11 @@ def k1_route_against_setop_rows(A, LA, B, LB, reps=7):
 
     from dgraph_tpu_torch.ops import member_sweep, setop_rows
 
-    pa = int(A.shape[1])
     routes = {
         "k1_compact": (lambda: member_sweep.intersect_batch(A, LA, B, LB),
-                       {"member_sweep_kernel": 1, **setop_rows.kernel_names(pa)}),
+                       {"member_sweep_kernel": 1, **setop_rows.kernel_names()}),
         "setop_rows": (lambda: setop_rows.intersect_batch(A, LA, B, LB),
-                       setop_rows.kernel_names(pa)),
+                       setop_rows.kernel_names()),
     }
     (o1, c1), (o2, c2) = (fn() for fn, _ in routes.values())
     torch.cuda.synchronize()
@@ -1978,18 +2341,18 @@ def upsert_emails(server, pool, n_emails=2000, n_pre=1000, threads=8, per_thread
 def upsert_hot(server, g, count):
     """(u2): the fan-out upsert. Marks every hot level-3 node of query (b)
     through uid(h); checks has(hot_seen) against numpy. Returns the
-    member-sweep calls `count()` saw during the upsert."""
+    setop_rows calls `count()` saw during the upsert."""
     c0 = count()
     t0 = time.perf_counter()
     server.new_txn().upsert(query=HOT_UPSERT[0], set_rdf=HOT_UPSERT[1])
     took = time.perf_counter() - t0
-    sweeps = count() - c0
+    setops = count() - c0
     want = sorted({u for row in expected(g, "b").values() for u in row})
     got = sorted(int(o["uid"], 16)
                  for o in json.loads(_run_query(server, STATE_READS["hot_seen"]))["q"])
     if got != want:
         raise AssertionError(f"(u2): has(hot_seen) holds {len(got)} uids, numpy {len(want)}")
-    return {"s": took, "sweeps": sweeps, "marked": len(got)}
+    return {"s": took, "setops": setops, "marked": len(got)}
 
 
 def bank(server, n=1000, threads=8, per_thread=250, seed=13, conflict=None):
@@ -2138,6 +2501,9 @@ def serve_writes(device, data_dir, V, Q, fanout=100, pool=200_000,
     def topks():
         return vector_topk.LAUNCHES if on_card else vector_topk.PLAIN_CALLS
 
+    def setops():
+        return setops_count(on_card)
+
     g = make_graph(fanout, pool)
     vec_base = int(g["pool"].max()) + 1
     saved = (dispatch._FORCE_DEVICE, dispatch._USE_PALLAS)
@@ -2192,20 +2558,11 @@ def serve_writes(device, data_dir, V, Q, fanout=100, pool=200_000,
             f"{out['u1']['per_s']:.1f}/s, p50 {out['u1']['p50_ms']:.3f} ms, p99 "
             f"{out['u1']['p99_ms']:.3f} ms, {out['u1']['aborts']} conflicts retried; "
             f"{n_emails} emails, one uid each, {n_emails - n_pre} new")
-        with _Capture(member_sweep) as cap:
-            out["u2"] = upsert_hot(server, g, sweeps)
-        if out["u2"]["sweeps"] < 1:
-            raise AssertionError("(u2): the member sweep did not launch during the upsert")
-        if on_card:
-            A, LA, B, LB = cap.args
-            check_sorted(A, LA, B, LB)
-            got = member_sweep.membership_batch(A, LA, B, LB)
-            if not torch.equal(got, member_sweep.membership_batch_plain(A, LA, B, LB)):
-                raise AssertionError("(u2): K1 != plain on the upsert's inputs")
-            out["u2"]["sweep_shape"] = _shape_key((A, LA, B, LB))
+        out["u2"] = upsert_hot(server, g, setops)
+        if out["u2"]["setops"] < 1:
+            raise AssertionError("(u2): setop_rows did not launch during the upsert")
         log(f"(u2) fan-out upsert in {out['u2']['s']:.3f}s marked {out['u2']['marked']} "
-            f"hot nodes (== numpy), member sweep {out['u2']['sweeps']} launches, equal to "
-            f"plain on its inputs {out['u2'].get('sweep_shape')}")
+            f"hot nodes (== numpy), setop_rows {out['u2']['setops']} launches")
         out["u3"] = bank(server, n_accounts, bank_threads, transfers_per_thread)
         log(f"(u3) bank: {out['u3']['transfers']} transfers from {bank_threads} threads, "
             f"{out['u3']['per_s']:.1f}/s, abort share {out['u3']['abort_share']:.4f}, "
@@ -2240,6 +2597,7 @@ def serve_writes(device, data_dir, V, Q, fanout=100, pool=200_000,
         server.slow_query_ms = float("inf")
         member_sweep.LAUNCHES = member_sweep.PLAIN_CALLS = 0
         vector_topk.LAUNCHES = vector_topk.PLAIN_CALLS = 0
+        setops0 = setops()
         # KV1's inputs in the counted similar_to reads, held against its
         # plain version once the counts are read
         with _VecCapture() as vec_cap:
@@ -2260,16 +2618,17 @@ def serve_writes(device, data_dir, V, Q, fanout=100, pool=200_000,
         per = {"similar_to": topks()}
         cold = {}
         for name, q in QUERIES.items():
-            c0 = sweeps()
+            c0 = setops()
             t = time.perf_counter()
             again[name] = _run_query(server, q)
             cold[name] = (time.perf_counter() - t) * 1e3
-            per[name] = sweeps() - c0
+            per[name] = setops() - c0
         for name, q in STATE_READS.items():
             again[name] = _run_query(server, q)
-        out["after_restart_launches"] = {"member_sweep": sweeps(), "vector_topk": topks()}
+        out["after_restart_launches"] = {"member_sweep": sweeps(), "vector_topk": topks(),
+                                         "setop_rows": setops() - setops0}
         if per["b"] < 1 or per["similar_to"] < n_reads:
-            raise AssertionError(f"after the restart: K1 {per['b']} in (b), KV1 "
+            raise AssertionError(f"after the restart: setop_rows {per['b']} in (b), KV1 "
                                  f"{per['similar_to']} in {n_reads} similar_to reads")
         ties = []
         for name in answers:
@@ -2305,7 +2664,8 @@ def serve_writes(device, data_dir, V, Q, fanout=100, pool=200_000,
             raise AssertionError(f"a blank node after the restart got {hex(fresh)}, at or "
                                  f"below a recovered uid {hex(known_top)}")
         log(f"after the restart: (a)-(d), {n_reads} similar_to reads (near-ties {ties}), "
-            f"emails, hot_seen and balances equal to before; K1 {per['b']} launches in (b), "
+            f"emails, hot_seen and balances equal to before; setop_rows {per['b']} launches in "
+            f"(b), "
             f"KV1 {per['similar_to']} in the similar_to reads; fresh blank node "
             f"{hex(fresh)} > {hex(known_top)}; read ms {out['read_ms']}")
         server.kv.close()
@@ -2399,7 +2759,7 @@ def front_graph(server, g, n_roots=50, log=print):
                 with knobs(PLAN_CACHE_SIZE=size):
                     h0 = METRICS.value("plan_cache_hit_total")
                     m0 = METRICS.value("plan_cache_miss_total")
-                    c0, parse_ns, got = count(), [], {}
+                    c0, s0, parse_ns, got = count(), setops_count(on_card), [], {}
                     for r in seq:
                         res = server.query(ROOTED_B.format(r), want="raw")
                         parse_ns.append(res["extensions"]["server_latency"]["parsing_ns"])
@@ -2410,7 +2770,8 @@ def front_graph(server, g, n_roots=50, log=print):
                 answers[size, how] = got
                 out["plan"][f"{size} {how}"] = {
                     "hit_rate": hits / max(1, hits + misses), "hits": int(hits),
-                    "parse_ms": float(np.mean(parse_ns)) / 1e6, "sweeps": count() - c0}
+                    "parse_ms": float(np.mean(parse_ns)) / 1e6, "sweeps": count() - c0,
+                    "setops": setops_count(on_card) - s0}
         if any(a != answers[512, "cycle"] for a in answers.values()):
             raise AssertionError("(9b): answers differ with the plan cache on and off")
         for i, r in enumerate(roots):
@@ -2425,11 +2786,11 @@ def front_graph(server, g, n_roots=50, log=print):
             f"equal with PLAN_CACHE_SIZE 512 and 0 and to numpy; {out['plan']}")
 
         for name in ("a", "b"):
-            c0 = count()
+            c0, s0 = count(), setops_count(on_card)
             t = time.perf_counter()
             rdf = server.query_rdf(QUERIES[name])
             dev_ms = (time.perf_counter() - t) * 1e3
-            sweeps = count() - c0
+            sweeps, setops = count() - c0, setops_count(on_card) - s0
             with forced_device(False):
                 host = server.query_rdf(QUERIES[name])
             edges = json_edges(json.loads(_run_query(server, QUERIES[name])))
@@ -2438,9 +2799,9 @@ def front_graph(server, g, n_roots=50, log=print):
                 raise AssertionError(f"(9d) {name}: device path == host path {rdf == host}, "
                                      f"{triples} triples for {edges} JSON edges")
             out["rdf"][name] = {"triples": triples, "bytes": len(rdf), "ms": dev_ms,
-                                "sweeps": sweeps}
-        if out["rdf"]["b"]["sweeps"] < 1:
-            raise AssertionError("(9d): the member sweep did not launch in query_rdf (b)")
+                                "sweeps": sweeps, "setops": setops}
+        if out["rdf"]["b"]["setops"] < 1:
+            raise AssertionError("(9d): setop_rows did not launch in query_rdf (b)")
         log(f"(9d) query_rdf of (a) and (b): device path == host path byte for byte, one "
             f"triple per edge of the JSON answer; {out['rdf']}")
 
@@ -2848,6 +3209,9 @@ def serve_ops(device, workdir, V, Q, fanout=100, pool=200_000, workers=None, n_r
     def sweeps():
         return member_sweep.LAUNCHES if on_card else member_sweep.PLAIN_CALLS
 
+    def setops():
+        return setops_count(on_card)
+
     def topks():
         return vector_topk.LAUNCHES if on_card else vector_topk.PLAIN_CALLS
 
@@ -2893,6 +3257,7 @@ def serve_ops(device, workdir, V, Q, fanout=100, pool=200_000, workers=None, n_r
     with forced_device(), knobs(GROUP_COMMIT=1), _Capture(member_sweep) as cap, \
             _VecCapture() as vcap:
         member_sweep.LAUNCHES = member_sweep.PLAIN_CALLS = 0
+        setops0 = setops()
         vector_topk.LAUNCHES = vector_topk.PLAIN_CALLS = 0
 
         # (10a) the bulk loads
@@ -2924,9 +3289,9 @@ def serve_ops(device, workdir, V, Q, fanout=100, pool=200_000, workers=None, n_r
         per = {}
         answers = {}
         for name, q in QUERIES.items():
-            c0 = sweeps()
+            c0 = setops()
             answers[name] = _run_query(src, q)
-            per[name] = sweeps() - c0
+            per[name] = setops() - c0
         c0 = topks()
         answers.update({f"v{i}": _run_query(src, q) for i, q in enumerate(vec_q)})
         per["similar_to"] = topks() - c0
@@ -2936,13 +3301,13 @@ def serve_ops(device, workdir, V, Q, fanout=100, pool=200_000, workers=None, n_r
         if not near_equal(V, Q[:n_reads], got_rows, ex_d):
             raise AssertionError("(10a): similar_to(emb_small) != exact top-k beyond near-ties")
         if per["b"] < 1 or per["similar_to"] < n_reads:
-            raise AssertionError(f"(10a): K1 {per['b']} launches in (b), KV1 "
+            raise AssertionError(f"(10a): setop_rows {per['b']} launches in (b), KV1 "
                                  f"{per['similar_to']} in {n_reads} similar_to reads")
         log(f"(10a) bulk load, {workers} workers: {edges} edges and tags in {graph_s:.3f}s "
             f"({edges / graph_s:.1f} edges/s, native reduce), {len(V)} x {V.shape[1]} vectors "
             f"in {vec_s:.3f}s ({len(V) / vec_s:.1f} vectors/s, Python reduce, {chunks} map "
             f"chunks forked with the card live: {card_live}; text made in {text_s:.3f}s); "
-            f"(a)-(d) == numpy, K1 {per['b']} launches in (b), KV1 {per['similar_to']} in "
+            f"(a)-(d) == numpy, setop_rows {per['b']} launches in (b), KV1 {per['similar_to']} in "
             f"{n_reads} similar_to reads == exact top-k outside near-ties")
         lap("10a reads")
         close(src)
@@ -2996,14 +3361,14 @@ def serve_ops(device, workdir, V, Q, fanout=100, pool=200_000, workers=None, n_r
         subs.subscribe(vec_q[0], fired_v.append)
         if len(fired_b) != 1 or extract("b", fired_b[0]["data"]) != expected(g, "b", hot):
             raise AssertionError("(10b): (b)'s first callback != numpy")
-        c0 = sweeps()
+        c0 = setops()
         lat["subscribed"] = []
         for i, u in enumerate(flips[n_flips : 2 * n_flips]):
             lat["subscribed"].append(timed(flip, u))
             if len(fired_b) != i + 2 or extract("b", fired_b[-1]["data"]) != expected(g, "b", hot):
                 raise AssertionError(f"(10b): after flip {i}, (b) fired {len(fired_b) - 1} "
                                      "times or != numpy")
-        sweeps_per_commit = (sweeps() - c0) / n_flips
+        setops_per_commit = (setops() - c0) / n_flips
         lap("10b subscribed flips")
         for j in range(n_unrelated):
             src.new_txn().mutate_rdf(set_rdf=f'<{hex(flips[-1 - j])}> <hot_seen> "true" .',
@@ -3030,13 +3395,13 @@ def serve_ops(device, workdir, V, Q, fanout=100, pool=200_000, workers=None, n_r
         out["subscriptions"] = {
             "b_fired": len(fired_b) - 1, "similar_fired": len(seen),
             "committed_vectors_seen": [len(set(s) & set(new_uids)) for s in seen],
-            "sweeps_per_commit": sweeps_per_commit,
+            "setops_per_commit": setops_per_commit,
             "commit_ms": {arm: dict(zip(("p50", "p99"), _p50_p99(ms))) for arm, ms in lat.items()}}
         log(f"(10b) subscriptions: (b) fired once per flip, == numpy ({n_flips} flips), nothing "
             f"on {n_unrelated} unrelated commits; similar_to fired {len(seen)} times on "
             f"{n_vec_commits} vector commits, seeing {out['subscriptions']['committed_vectors_seen']}"
             f" of them (callbacks run before the commit's vectors reach the index); K1 "
-            f"{sweeps_per_commit:.3f} launches a commit; commit ms {out['subscriptions']['commit_ms']}")
+            f"{setops_per_commit:.3f} launches a commit; commit ms {out['subscriptions']['commit_ms']}")
 
         lap("10b the rest")
         # (10c) the bank under CDC, then a batch the sink never gets
@@ -3140,11 +3505,11 @@ def serve_ops(device, workdir, V, Q, fanout=100, pool=200_000, workers=None, n_r
             records = _wait_task(rst, tasks.enqueue_restore(rst, bdir))["records"]
             rec["total"] = time.perf_counter() - t0
         lap("10d restore")
-        c0, v0 = sweeps(), topks()
+        c0, v0 = setops(), topks()
         got = _answers(rst, vec_q)
-        launched = {"member_sweep": sweeps() - c0, "vector_topk": topks() - v0}
+        launched = {"setop_rows": setops() - c0, "vector_topk": topks() - v0}
         ties = _same_answers("(10d) restored", got, now, V, Q, vec_base, ex_d, set(new_uids))
-        if launched["member_sweep"] < 1 or launched["vector_topk"] < n_reads:
+        if launched["setop_rows"] < 1 or launched["vector_topk"] < n_reads:
             raise AssertionError(f"(10d): the restored server launched {launched}")
         out["restore"] = {"records": records, "s": rec["total"],
                           "records_s": rec["total"] - rec["_load_persisted_state"],
@@ -3219,9 +3584,9 @@ def serve_ops(device, workdir, V, Q, fanout=100, pool=200_000, workers=None, n_r
             out["rollup"]["split_s"] = time.perf_counter() - t0
             parts = decode_record(src.kv.get(cold, 1 << 62)[1])[3]
             flip(tail[2])  # a delta over the split list: the next read decodes its parts
-            c0 = sweeps()
+            c0 = setops()
             got = {name: _run_query(src, q) for name, q in QUERIES.items()}
-            out["rollup"]["sweeps_d"] = sweeps() - c0
+            out["rollup"]["setops_d"] = setops() - c0
             check_graph("(10d) over the split cold list", got)
         finally:
             plmod.MAX_PART_UIDS = saved
@@ -3232,10 +3597,11 @@ def serve_ops(device, workdir, V, Q, fanout=100, pool=200_000, workers=None, n_r
             f"{export_s:.3f}s, bulk-loaded (native) in {reload_s:.3f}s: (b) == the restored "
             f"server; rollup_all {rolled} keys in {out['rollup']['s']:.3f}s, (a)-(d) unchanged; "
             f"MAX_PART_UIDS {split_at}: the cold list rolled into {len(parts)} parts, "
-            f"(a)-(d) == numpy over it (K1 {out['rollup']['sweeps_d']} launches)")
+            f"(a)-(d) == numpy over it (setop_rows {out['rollup']['setops_d']} launches)")
         close(src)
         lap("10d split")
-        out["launches"] = {"member_sweep": sweeps(), "vector_topk": topks()}
+        out["launches"] = {"member_sweep": sweeps(), "vector_topk": topks(),
+                           "setop_rows": setops() - setops0}
     out["sweep_shapes"] = cap.by_shape
     out["captured"] = (vcap.topk, vcap.slabs)
     return out
@@ -3362,7 +3728,7 @@ def data_in_and_out(V, Q, json_rate, card, t_start):
     if ops["load"]["map_chunks"] < 2 or not ops["load"]["card_live_at_fork"]:
         raise AssertionError(f"(10a): the vector load did not fork its map workers with the "
                              f"card live: {ops['load']}")
-    if min(ops["launches"].values()) < 1:
+    if min(n for k, n in ops["launches"].items() if k != "member_sweep") < 1:  # K1: pairs
         raise AssertionError(f"(10) a kernel did not launch: {ops['launches']}")
     bad = {k: n for k, n in sweep_shapes_equal(ops["sweep_shapes"]).items() if n}
     if bad:
@@ -3521,6 +3887,9 @@ def serve_cluster(device, workdir, V, Q, fanout=100, roots=None, pool=200_000, n
     def sweeps():
         return member_sweep.LAUNCHES if on_card else member_sweep.PLAIN_CALLS
 
+    def setops():
+        return setops_count(on_card)
+
     def topks():
         return vector_topk.LAUNCHES if on_card else vector_topk.PLAIN_CALLS
 
@@ -3546,12 +3915,12 @@ def serve_cluster(device, workdir, V, Q, fanout=100, roots=None, pool=200_000, n
         `has(tag)` takes an RPC per candidate) once more warm."""
         answers, res = {}, {}
         for name, q in QUERIES.items():
-            c0 = sweeps()
+            c0 = setops()
             with _RpcCount(c.pool) as rpc:
                 t = time.perf_counter()
                 answers[name] = ask(c, q, read_ts)
                 res[name] = {"cold_ms": (time.perf_counter() - t) * 1e3}
-            res[name].update(rpcs=rpc.n, k1=sweeps() - c0, bytes=len(answers[name]))
+            res[name].update(rpcs=rpc.n, setops=setops() - c0, bytes=len(answers[name]))
             if full and name != "c":
                 t = time.perf_counter()
                 if ask(c, q, read_ts) != answers[name]:
@@ -3564,8 +3933,8 @@ def serve_cluster(device, workdir, V, Q, fanout=100, roots=None, pool=200_000, n
             want = expected(g, "a" if name == "a" else "b", hot)
             if extract(name, json.loads(answers[name])) != want:
                 raise AssertionError(f"query {name}: != numpy reference")
-        if res["b"]["k1"] < 1:
-            raise AssertionError("K1 did not launch during (b)")
+        if res["b"]["setops"] < 1:
+            raise AssertionError("setop_rows did not launch during (b)")
         return answers, res
 
     out = {}
@@ -3578,6 +3947,7 @@ def serve_cluster(device, workdir, V, Q, fanout=100, roots=None, pool=200_000, n
                                 QUERY_DEADLINE_S=600, READ_RETRY_BUDGET=4096), \
             _Capture(member_sweep) as cap, _VecCapture() as vcap:
         member_sweep.LAUNCHES = member_sweep.PLAIN_CALLS = 0
+        setops0 = setops()
         vector_topk.LAUNCHES = vector_topk.PLAIN_CALLS = 0
         c = dc = None
         try:
@@ -3611,7 +3981,7 @@ def serve_cluster(device, workdir, V, Q, fanout=100, roots=None, pool=200_000, n
             if not answers["b"] == answers["c"] == answers["d"]:
                 raise AssertionError("(11a): (b), (c) and (d) answer other bytes")
             log(f"(11a) (a)-(d) equal to the host path and numpy, (b)-(d) the same bytes; ms, "
-                f"RPCs, K1: " + json.dumps(out["reads"]))
+                f"RPCs, setop_rows launches: " + json.dumps(out["reads"]))
 
             # (11b) the leader of tag's group dies under a commit
             gid = c.zero.belongs_to("tag")
@@ -3719,10 +4089,11 @@ def serve_cluster(device, workdir, V, Q, fanout=100, roots=None, pool=200_000, n
                     "after": sum(s > flip[1] for s, _, _ in seen)}
             if not when["straddling"]:
                 raise AssertionError(f"(11c): no read straddled the flip: {when}")
-            c0 = sweeps()
-            if ask(c, QUERIES["b"]) != flipped_b or sweeps() == c0:
-                raise AssertionError("(11c): (b) after the move differs or K1 did not launch")
-            out["move"] = {"s": move_s, "reads": len(seen), "k1_after": sweeps() - c0,
+            c0 = setops()
+            if ask(c, QUERIES["b"]) != flipped_b or setops() == c0:
+                raise AssertionError("(11c): (b) after the move differs or setop_rows did not "
+                                     "launch")
+            out["move"] = {"s": move_s, "reads": len(seen), "setops_after": setops() - c0,
                            "read_ms": [(e - s) * 1e3 for s, e, _ in seen], "dst": dst,
                            "reads_by_flip": when,
                            "phases_s": {p: t - t0 for p, t in sorted(marks.items(),
@@ -3730,7 +4101,7 @@ def serve_cluster(device, workdir, V, Q, fanout=100, roots=None, pool=200_000, n
             log(f"(11c) tag moved to group {dst} in {move_s:.3f}s under {len(seen)} reads of "
                 f"(b) from 2 threads, all equal ({when['before']} ended before "
                 f"the flip, {when['straddling']} straddled it, {when['after']} began after); "
-                f"after it (b) equal, K1 {sweeps() - c0} launches")
+                f"after it (b) equal, setop_rows {setops() - c0} launches")
 
             # (11d) full restart. The coordinator's Zero keeps its
             # timestamps in memory, so a new one starts again at 1 (in
@@ -3802,7 +4173,8 @@ def serve_cluster(device, workdir, V, Q, fanout=100, roots=None, pool=200_000, n
                 dc.close()
             if c is not None:
                 c.close()
-        out["launches"] = {"member_sweep": sweeps(), "vector_topk": topks()}
+        out["launches"] = {"member_sweep": sweeps(), "vector_topk": topks(),
+                           "setop_rows": setops() - setops0}
         out["sweep_shapes"] = cap.by_shape
         out["captured"] = (vcap.topk, vcap.slabs)
     left = cluster_children()
@@ -3825,7 +4197,7 @@ def cluster_phase(V, Q, card, t_start, full=False):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cluster_") as d:
         cl = serve_cluster("cuda", d, V, Q, **({} if full else CLUSTER_CUT),
                            log=lambda m: print("    " + m, flush=True))
-    if min(cl["launches"].values()) < 1:
+    if min(n for k, n in cl["launches"].items() if k != "member_sweep") < 1:  # K1: pairs
         raise AssertionError(f"(11) a kernel did not launch: {cl['launches']}")
     bad = {k: n for k, n in sweep_shapes_equal(cl["sweep_shapes"]).items() if n}
     if bad:
@@ -3884,8 +4256,8 @@ def expected_b(g, hot, extra=()):
 
 
 class _Entries:
-    """Counts, per dispatcher entry, the K1 calls made under it (the
-    outermost entry of a nesting takes them)."""
+    """Counts, per dispatcher entry, the kernel calls `count()` sees made
+    under it (the outermost entry of a nesting takes them)."""
 
     def __init__(self, count):
         import threading
@@ -3988,7 +4360,7 @@ def serve_graphql(gserver, g, vserver, small_V, Qs, named, exact, extra=(), k=10
     localhost and the port's `client.py` (the websocket through a socket),
     on the forced device path. (12a) `dgraph.type` "Node" on every node,
     the SDL uploaded to both servers, nothing rebuilt; (12b) query (b) as
-    `queryNode` and `getNode` (K1), its warm median beside (b) as DQL on
+    `queryNode` and `getNode` (setop_rows), its warm median beside (b) as DQL on
     the same front; (12c) an aggregate and a page; (12d) n_reads
     `querySimilarDocByEmbedding` reads by `emb_small` (brute: KV1) and by
     `emb` (IVF: KV2, KV1) and one `querySimilarDocById`; (12e) n_flips
@@ -4005,15 +4377,19 @@ def serve_graphql(gserver, g, vserver, small_V, Qs, named, exact, extra=(), k=10
 
     on_card = gserver.device.type == "cuda"
 
-    def sweeps():
-        return member_sweep.LAUNCHES if on_card else member_sweep.PLAIN_CALLS
+    def setops():
+        return setops_count(on_card)
+
+    setops0 = setops()
 
     def launches():
         if on_card:
-            return {"member_sweep": member_sweep.LAUNCHES, "vector_topk": vector_topk.LAUNCHES,
-                    "ivf_slab_scan": ivf_scan.LAUNCHES}
-        return {"member_sweep": member_sweep.PLAIN_CALLS,
-                "vector_topk": vector_topk.PLAIN_CALLS, "ivf_slab_scan": ivf_scan.PLAIN_CALLS}
+            got = {"member_sweep": member_sweep.LAUNCHES, "vector_topk": vector_topk.LAUNCHES,
+                   "ivf_slab_scan": ivf_scan.LAUNCHES}
+        else:
+            got = {"member_sweep": member_sweep.PLAIN_CALLS,
+                   "vector_topk": vector_topk.PLAIN_CALLS, "ivf_slab_scan": ivf_scan.PLAIN_CALLS}
+        return {**got, "setop_rows": setops() - setops0}
 
     def gql(client, q, variables=None):
         got = client.graphql(q, variables)
@@ -4046,7 +4422,7 @@ def serve_graphql(gserver, g, vserver, small_V, Qs, named, exact, extra=(), k=10
             if server.acl is not None:  # phase 9 turned ACL on: a guardian's token
                 c.login("groot", "password")
         with forced_device(), _Capture(member_sweep) as cap, _VecCapture() as vcap, \
-                _Entries(sweeps) as entries:
+                _Entries(setops) as entries:
             member_sweep.LAUNCHES = member_sweep.PLAIN_CALLS = 0
             vector_topk.LAUNCHES = vector_topk.PLAIN_CALLS = 0
             ivf_scan.LAUNCHES = ivf_scan.PLAIN_CALLS = 0
@@ -4094,15 +4470,15 @@ def serve_graphql(gserver, g, vserver, small_V, Qs, named, exact, extra=(), k=10
 
             # (12b) query (b) through GraphQL and DQL on the same front
             want = expected_b(g, hot, extra)
-            c0, e0 = sweeps(), dict(entries.by)
+            c0, e0 = setops(), dict(entries.by)
             got = gql(gc, GQL_B)["queryNode"]
-            out["b_sweeps"] = sweeps() - c0
+            out["b_setops"] = setops() - c0
             out["b_entries"] = {n: v - e0.get(n, 0) for n, v in entries.by.items()
                                 if v - e0.get(n, 0)}
             if len(got) != 1 or graphql_levels(got[0]) != want:
                 raise AssertionError("(12b): queryNode's level 3 != numpy")
-            if out["b_sweeps"] < 1:
-                raise AssertionError("(12b): K1 did not launch")
+            if out["b_setops"] < 1:
+                raise AssertionError("(12b): setop_rows did not launch")
             if graphql_levels(gql(gc, GQL_GET_B)["getNode"]) != want:
                 raise AssertionError("(12b): getNode's level 3 != numpy")
             if extract("b", gc.query(QUERIES["b"])["data"]) != want:
@@ -4118,8 +4494,8 @@ def serve_graphql(gserver, g, vserver, small_V, Qs, named, exact, extra=(), k=10
                 out["b_trace"] = profile_query(gserver, lambda: gql(gc, GQL_B), reps=1,
                                                log=lambda m: log("  " + m))
             lap("b")
-            log(f"(12b) queryNode and getNode (b) == numpy == DQL (b) over HTTP; K1 "
-                f"{out['b_sweeps']} launches, by dispatcher entry {out['b_entries']}; warm "
+            log(f"(12b) queryNode and getNode (b) == numpy == DQL (b) over HTTP; setop_rows "
+                f"{out['b_setops']} launches, by dispatcher entry {out['b_entries']}; warm "
                 f"medians ms {out['b_ms']}")
 
             # (12c) an aggregate and a page
@@ -4219,12 +4595,12 @@ def serve_graphql(gserver, g, vserver, small_V, Qs, named, exact, extra=(), k=10
             hot_now = set(hot)
 
             def flip(u):
-                c0 = sweeps()
+                c0 = setops()
                 ms, got = ms_of(lambda: gql(gc, GQL_FLIP % hex(u)))
                 if got["updateNode"]["numUids"] != 1:
                     raise AssertionError(f"(12e): updateNode of {u:#x} answered {got}")
                 hot_now.add(u)
-                return ms, sweeps() - c0
+                return ms, setops() - c0
 
             def read_b(what):
                 if graphql_levels(gql(gc, GQL_B)["queryNode"][0]) != expected_b(g, hot_now,
@@ -4257,9 +4633,9 @@ def serve_graphql(gserver, g, vserver, small_V, Qs, named, exact, extra=(), k=10
                     push(f"after flipping {u:#x}")
                     read_b(f"after flipping {u:#x} (subscribed)")
                 same = flips[0]  # hot already: the commit changes no answer
-                c0 = sweeps()
+                c0 = setops()
                 ms_same, got = ms_of(lambda: gql(gc, GQL_FLIP % hex(same)))
-                rerun_sweeps = sweeps() - c0
+                rerun = setops() - c0
                 quiet = ws.recv(2.0)
                 if quiet is not None:
                     raise AssertionError(f"(12e): a push for a commit that changed no answer: "
@@ -4270,14 +4646,14 @@ def serve_graphql(gserver, g, vserver, small_V, Qs, named, exact, extra=(), k=10
                 "alone_p50_ms": float(np.median([ms for ms, _ in alone])),
                 "subscribed_p50_ms": float(np.median([ms for ms, _ in subscribed])),
                 "alone_ms": [ms for ms, _ in alone], "subscribed_ms": [ms for ms, _ in subscribed],
-                "k1_per_commit_alone": [n for _, n in alone],
-                "k1_per_commit_subscribed": [n for _, n in subscribed],
-                "unchanged": {"ms": ms_same, "k1": rerun_sweeps, "pushed": False}}
+                "setops_per_commit_alone": [n for _, n in alone],
+                "setops_per_commit_subscribed": [n for _, n in subscribed],
+                "unchanged": {"ms": ms_same, "setops": rerun, "pushed": False}}
             lap("e")
             log(f"(12e) {n_flips} updateNode flips alone, then {n_flips} under a "
                 f"graphql-transport-ws subscription to (b): every push and every (b) after a "
                 f"flip == numpy; a commit that changed no answer re-ran the subscription "
-                f"({rerun_sweeps} K1) and pushed nothing; {json.dumps(out['commits'])}")
+                f"({rerun} setop_rows launches) and pushed nothing; {json.dumps(out['commits'])}")
         out["launches"] = launches()
         out["entries"] = dict(entries.by)
         out["sweep_shapes"] = cap.by_shape
@@ -4297,7 +4673,7 @@ def graphql_phase(gserver, g, vserver, small_V, Qs, named, exact, extra, card, t
           "subscription, on phase 4's and phase 7's servers; at " + card, flush=True)
     gq = serve_graphql(gserver, g, vserver, small_V, Qs, named, exact, extra,
                        log=lambda m: print("    " + m, flush=True))
-    if min(gq["launches"].values()) < 1:
+    if min(n for k, n in gq["launches"].items() if k != "member_sweep") < 1:  # K1: pairs
         raise AssertionError(f"(12) a kernel did not launch: {gq['launches']}")
     bad = {k: n for k, n in sweep_shapes_equal(gq["sweep_shapes"]).items() if n}
     if bad:
@@ -4972,20 +5348,66 @@ def main(argv=None) -> int:
         print(f"    query ({name}): device path {r['device_ms']:.3f} ms, host path "
               f"{r['host_ms']:.3f} ms (warm medians), {r['bytes']} bytes; "
               "device == host == numpy", flush=True)
-    print(f"    member sweep launches per query {s['sweep_per_query']}, shapes "
-          f"(n, pa, pb) {s['sweep_shapes']}; setop_rows launches per query "
-          f"{s['setop_per_query']}; dispatcher copies (to the card, back) in bytes "
+    print(f"    setop_rows launches per query {s['setop_per_query']}, calls by wrapper at "
+          f"(m, N, nB, ranges) or (n, pa[, pb]) {s['setop_calls']}, tiles that searched b "
+          f"in global memory {s['global_tiles']}; member sweep launches per query "
+          f"{s['sweep_per_query']}; dispatcher copies (to the card, back) in bytes "
           f"{s['copies']}", flush=True)
     print(f"    device memory peak {s['peak_bytes']} bytes; DeviceCache "
           f"{s['device_cache']}", flush=True)
-    if s["sweep_per_query"]["b"] < 1:
-        raise AssertionError("the member sweep did not launch during query (b)")
-    if min(s["setop_per_query"][q] for q in "bcd") < 1:
-        raise AssertionError(f"setop_rows did not launch in (b), (c) and (d): "
-                             f"{s['setop_per_query']}")
+    b_calls = s["setop_calls"]["b"]
+    if s["setop_per_query"]["b"] != 1 or list(b_calls) != ["intersect_ragged"] \
+            or s["sweep_per_query"]["b"]:
+        raise AssertionError(f"(b)'s filtered level: want one setop_rows launch (ragged) and "
+                             f"no K1, got {s['setop_per_query']['b']} ({b_calls}) and "
+                             f"K1 {s['sweep_per_query']['b']}")
+    if min(s["setop_per_query"][q] for q in "cd") < 1:
+        raise AssertionError(f"setop_rows did not launch in (c) and (d): {s['setop_per_query']}")
+    if len(s["setop_calls"]["d"].get("difference_ragged", ())) != 1:
+        raise AssertionError(f"(d)'s difference not in one launch: {s['setop_calls']['d']}")
+    # a warm (b): the rows go up with their sub-row table (offsets and range
+    # ids), b comes from the DeviceCache, and only the kept words come back
+    m_b = b_calls["intersect_ragged"][0][0]
+    up, down = s["copies"]["b"]["warm"]
+    if down > 500_000 or up > 4_087_068 + 4 * (2 * m_b + 1):
+        raise AssertionError(f"(b) warm: {up} bytes up (at most {4_087_068 + 4 * (2 * m_b + 1)}),"
+                             f" {down} back (at most 500,000)")
+    print(f"    (b) warm: {up} bytes up ({m_b} sub-rows), {down} back in reads of "
+          f"{s['copies']['b']['fetch_ms']} ms (host clock: the offsets, waiting on the kernel, "
+          "then the kept words); (d)'s difference in one launch", flush=True)
+    # setop_rows launches of each later path, its count zeroed just before,
+    # and the shapes at which it was held against its plain version
+    setop_paths, setop_checked = {"4": s["setop_launches"]}, {}
+    # the plain-torch programs' (K4-K7, K11) calls of each path and their
+    # largest input over all paths
+    plain_paths, plain_largest = {"4": s["plain_ops"][0]}, dict(s["plain_ops"][1])
 
-    print("[5] member sweep on the main path's inputs", flush=True)
-    A, LA, B, LB = s["captured"]
+    def setop_counted(path, fn, *a, **kw):
+        setop_rows.LAUNCHES = launches = 0
+        try:
+            with _Capture(setop_rows, SETOP_WRAPPERS) as scap, _PlainOps() as pops:
+                got = fn(*a, **kw)
+        finally:
+            launches = setop_rows.LAUNCHES
+            setop_paths[path] = setop_paths.get(path, 0) + launches
+        plain_paths[path] = pops.calls
+        for name, got_in in pops.largest.items():
+            if got_in[0] > plain_largest.get(name, (-1,))[0]:
+                plain_largest[name] = got_in
+        by_shape = scap.by_shape
+        bad = {k: n for k, n in setop_shapes_equal(by_shape).items() if n}
+        if bad:
+            raise AssertionError(f"({path}) setop_rows != plain at {bad}")
+        setop_checked[path] = setop_checked.get(path, 0) + len(by_shape)
+        print(f"    ({path}) {fn.__name__}: setop_rows launches {launches}, equal to plain "
+              f"at every shape it took: {len(by_shape)} shapes", flush=True)
+        del scap, by_shape
+        return got
+    k1 = setop_counted("4 K1 read", k1_read, "cuda",
+                       log=lambda m: print("    " + m, flush=True))
+
+    print("[5] member sweep on the main path's inputs (K1's read)", flush=True)
+    A, LA, B, LB = k1["captured"]
     check_sorted(A, LA, B, LB)
     main = measure_sweep(A, LA, B, LB)
     if main["mismatches"]:
@@ -4999,31 +5421,12 @@ def main(argv=None) -> int:
           f"{route['k1_compact']['ms']:.6f} ms (device {route['k1_compact']['device_ms']:.6f}); "
           f"setop_rows {route['setop_rows']['ms']:.6f} ms (device "
           f"{route['setop_rows']['device_ms']:.6f})", flush=True)
-    del s["captured"], A, LA, B, LB
+    del k1["captured"], A, LA, B, LB
     captured4 = s.pop("setop_captured")
     setop_main = setop_served(captured4, log=lambda m: print("    " + m, flush=True))
-    # setop_rows launches of each later path, its count zeroed just before,
-    # and the shapes at which it was held against its plain version
-    setop_paths, setop_checked = {"4": s["setop_launches"]}, {"4": len(captured4)}
+    setop_checked["4"] = len(captured4)
     del captured4
 
-    def setop_counted(path, fn, *a, **kw):
-        setop_rows.LAUNCHES = launches = 0
-        try:
-            with _Capture(setop_rows, SETOP_WRAPPERS) as scap:
-                got = fn(*a, **kw)
-        finally:
-            launches = setop_rows.LAUNCHES
-            setop_paths[path] = setop_paths.get(path, 0) + launches
-        by_shape = scap.by_shape
-        bad = {k: n for k, n in setop_shapes_equal(by_shape).items() if n}
-        if bad:
-            raise AssertionError(f"({path}) setop_rows != plain at {bad}")
-        setop_checked[path] = setop_checked.get(path, 0) + len(by_shape)
-        print(f"    ({path}) {fn.__name__}: setop_rows launches {launches}, equal to plain "
-              f"at every shape it took: {len(by_shape)} shapes", flush=True)
-        del scap, by_shape
-        return got
     print(f"    total {time.perf_counter() - t_start:.3f}s", flush=True)
 
     print("[6] vector kernels vs plain (KV1 bitwise, KV2 within tolerance), times in "
@@ -5123,6 +5526,16 @@ def main(argv=None) -> int:
                        t_start)
     del small_V, all_Q
 
+    print("[plain ops] K4-K7, K11 (plain torch in the port): calls by path "
+          f"{plain_paths}; ms (events) and byte bound at " + card, flush=True)
+    for name in PLAIN_OPS:
+        size, got_in = plain_largest.get(name, (None, None))
+        where = (f"its largest served input, {size} words or uids" if got_in is not None
+                 else "no served call: `plain_op_input`'s input at (b)'s scale")
+        r = plain_op_measure(name, got_in if got_in is not None else plain_op_input(name))
+        print(f"    {name} ({where}): {r['ms']:.6f} ms, bound {r['bound_ms']:.6f} "
+              f"({r['bound_by']})", flush=True)
+    del plain_largest
     print(f"    traces short after phase 6 (kernel, calls traced, calls made, lost "
           f"launches): {TRACE_SHORT[n_short6:]}; traces without the kernel (kernels, "
           f"calls, lost launches): {TRACE_EMPTY}", flush=True)
@@ -5132,10 +5545,9 @@ def main(argv=None) -> int:
         return max((r for site, r in served.items() if site.startswith(prefix)),
                    key=lambda r: r["bound_ms"])
 
-    sweep_paths = {"4": s["launches"], **{
-        f"8 {arm} {step}": n for arm, w in writes.items() for step, n in (
-            ("u2", w["u2"]["sweeps"]),
-            ("restart", w["after_restart_launches"]["member_sweep"]))},
+    sweep_paths = {"4": s["launches"], "4 K1 read": k1["launches"], **{
+        f"8 {arm} restart": w["after_restart_launches"]["member_sweep"]
+        for arm, w in writes.items()},
         "9": front["graph"]["sweeps"], "10": ops["launches"]["member_sweep"],
         "11": cl["launches"]["member_sweep"], "12": gq["launches"]["member_sweep"],
         "13": p13["launches"]["member_sweep"]}

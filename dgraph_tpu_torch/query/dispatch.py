@@ -6,16 +6,18 @@ to this dispatcher, which:
 
   1. splits u64 operands into hi-32 segments (codec/uidpack.py) so the
      ops run in the 32-bit local space,
-  2. buckets operand pairs by padded (pow2) shapes, or, for rows against
-     one shared operand, cuts every row at its segments in one pass over
-     the level buffer and runs each segment's rows against that
-     segment of the shared operand, uploaded once,
-  3. runs one batched op per bucket or segment: intersect and difference
-     through the hand-written kernels (ops/setop_rows.py, and the
-     member sweep with its compaction for intersect rows of <= 128,
-     ops/member_sweep.py), union through ops/setops.py; operands go up in
-     one copy through pinned memory, are padded on the device, and the
-     results come back in one copy,
+  2. for rows against one shared operand, cuts every row at its
+     segments in one pass over the level buffer; each sub-row searches
+     the range of the shared operand that holds its segment, all of them
+     in one launch over the ragged buffer, b uploaded once;
+  3. for pairs, runs intersect and difference sub-jobs in one ragged
+     launch with a range of B a pair, and buckets by padded (pow2) shapes
+     the union sub-jobs (ops/setops.py) and the intersect sub-jobs of
+     <= 128 that the member sweep takes (ops/member_sweep.py, then
+     setop_rows' compaction); intersect and difference run on the
+     hand-written kernel setop_rows (ops/setop_rows.py); operands go up in
+     one copy through pinned memory, and the results come back as their
+     offsets, then their kept words alone (a bucket: in one copy),
   4. keeps tiny batches on the host (native C++ loops), where moving the
      operands to the card costs more than the work,
   5. row-shards a giant shared operand over the dispatcher's device mesh
@@ -30,8 +32,7 @@ from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -65,7 +66,6 @@ _USE_PALLAS = bool(config.get("PALLAS"))
 _MIN_PAD = 8
 # small side of a bucket the member sweep takes (one query per thread)
 _SWEEP_MAX_PA = member_sweep.LANE
-_LO = np.uint64(0xFFFFFFFF)
 _HI_SHIFT = np.uint64(32)
 
 
@@ -258,7 +258,10 @@ def _fetch(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
     """int32 device tensors back to the host in one copy, as uint32 numpy
     arrays of their shapes, owned by the caller (on a card, views of a
     pinned block of their own)."""
-    flat = torch.cat([t.reshape(-1) for t in tensors])
+    if len(tensors) == 1:
+        flat = tensors[0].reshape(-1)
+    else:
+        flat = torch.cat([t.reshape(-1) for t in tensors])
     if flat.device.type == "cuda":
         buf = torch.empty((flat.numel(),), dtype=torch.int32, pin_memory=True)
         buf.copy_(flat, non_blocking=True)
@@ -289,53 +292,24 @@ def _pad_dev(vals: torch.Tensor, lens: torch.Tensor, width: int) -> torch.Tensor
     return out
 
 
-@dataclass(eq=False)
-class _Segment:
-    """One hi-32 segment of a shared-b run: its sub-rows (indices into the
-    cut), their padded width and lengths, b's words in it, the cache keys
-    of both operands, and their tensors on the device, then the result."""
-
-    hi: int
-    subs: np.ndarray
-    pa: int
-    lens: np.ndarray
-    b32: np.ndarray
-    rows_key: Optional[tuple]
-    b_key: Optional[tuple]
-    A: Optional[torch.Tensor] = None
-    LA: Optional[torch.Tensor] = None
-    B: Optional[torch.Tensor] = None
-    LB: Optional[torch.Tensor] = None
-    out: object = None
-    cnt: object = None
+def _offsets(lens) -> np.ndarray:
+    """Row offsets (len(lens) + 1,) int32 of rows of these lengths."""
+    off = np.zeros((len(lens) + 1,), np.int32)
+    np.cumsum(lens, out=off[1:])
+    return off
 
 
-def _assemble(flat, offs, hi, starts, kept, segs, through):
-    """The (flat, offs) result of a shared-b run from each segment's
-    (out, cnt) on the host and the segments passed through whole: sub-row
-    i keeps its first kept[i] words, joined in row and hi order."""
-    n = len(offs) - 1
-    out_at = np.zeros((len(starts) + 1,), np.int64)
-    np.cumsum(kept, out=out_at[1:])
-    res = np.empty((int(out_at[-1]),), np.uint64)
-    for s in segs:  # the kept words alone: sub-row i's first cnt[i]
-        cnt = s.cnt.astype(np.int64)
-        sub = np.repeat(np.arange(len(cnt)), cnt)
-        col = np.arange(len(sub)) - (np.cumsum(cnt) - cnt)[sub]
-        res[out_at[s.subs][sub] + col] = (
-            s.out[sub, col].astype(np.uint64) | (np.uint64(s.hi) << _HI_SHIFT)
-        )
-    if through:
-        e = np.flatnonzero(np.isin(hi, np.array(through, np.uint32)))
-        sub = np.searchsorted(starts, e, side="right") - 1
-        res[out_at[sub] + e - starts[sub]] = flat[e]
-    res_offs = np.zeros((n + 1,), np.int64)
-    sub_row = np.searchsorted(offs, starts, side="right") - 1
-    np.cumsum(
-        np.bincount(sub_row, weights=kept, minlength=n).astype(np.int64),
-        out=res_offs[1:],
-    )
-    return res, res_offs
+def _run_ragged(op, A, offs, rid, B, ranges) -> Tuple[np.ndarray, np.ndarray]:
+    """setop_rows over a ragged buffer on its device, read back as the
+    result's row offsets (int64, m + 1) and its words (uint32): the
+    offsets first, then the kept words alone."""
+    out, head = getattr(setop_rows, f"{op}_ragged")(A, offs, rid, B, ranges)
+    head = _fetch([head])[0]
+    setop_rows.GLOBAL_TILES += int(head[-1])
+    res_offs = head[:-1].astype(np.int64)
+    total = int(res_offs[-1])
+    words = _fetch([out[:total]])[0] if total else np.zeros((0,), np.uint32)
+    return res_offs, words
 
 
 class SetOpDispatcher:
@@ -501,13 +475,13 @@ class SetOpDispatcher:
         replicated per pair.
 
         `row_tokens` / `b_token` are (key, latest_ts) posting-list version
-        identities; when present, the padded device uploads are cached in
-        the DeviceCache and reused across calls/queries until a commit
+        identities; when present, the device uploads are cached in the
+        DeviceCache and reused across calls/queries until a commit
         invalidates the key.
 
         Small work stays on the host. On the device, intersect and
-        difference run each hi-32 segment's rows against b's segment
-        (`_vs_one_device`); union goes to the pair path."""
+        difference run every row's sub-rows against b's segments in one
+        launch (`_vs_one_device`); union goes to the pair path."""
         rows = list(rows)
         if not rows:
             return []
@@ -556,29 +530,23 @@ class SetOpDispatcher:
         dispatcher's mesh (and the mesh has more than one device)."""
         return len(b) >= _SHARD_MIN_B and self._mesh().size > 1
 
-    def _batch_fn(self, op: str, pa: int) -> Callable:
-        """The batched intersect or difference of rows of width pa, B
-        paired or shared: K1 and its compaction, or setop_rows."""
-        if self._sweeps(op, pa):
-            return member_sweep.intersect_batch
-        return getattr(setop_rows, f"{op}_batch")
-
     def _vs_one_device(self, op, flat, offs, b, row_tokens=None, b_token=None):
         """op(row, b) for intersect or difference of every row of a ragged
         level buffer (`flat`, `offs`) against one shared sorted b, on the
-        device; returns the result as (flat, offs).
+        device, in one setop_rows launch; returns the result as (flat,
+        offs).
 
         The hi-32 segments are cut once, over the whole buffer: a sub-row
-        is a run of one row within one segment. The sub-rows of segment h
-        run together against b's segment h as one shared operand, which
-        goes up once (or comes from the DeviceCache under
-        ("b", b_token, h, pb)); with every row's token given and one
-        segment in all, the padded rows are cached too, under
-        ("rows", h, pa, row_tokens).
-        Sub-rows of a segment that b lacks are empty for intersect and
-        pass through whole for difference. One upload, the padding on the
-        device, one read back; rows stay sorted since each row's
-        sub-rows are joined in hi order."""
+        is a run of one row within one segment, and searches the range of
+        b's lo words that holds b's segment of its hi word, or an empty
+        range where b has none (intersect then keeps none of it,
+        difference all). The sub-rows' lo words, starts and range ids go
+        up in one copy; b's lo words and its range table go up once (or
+        come from the DeviceCache under ("b", b_token, len(b))); with
+        every row's token given and one segment in all, the sub-rows are
+        cached too, under ("rows", hi, row_tokens). The result comes back
+        as its offsets, then its kept words alone; rows stay sorted since
+        each row's sub-rows run in hi order."""
         n = len(offs) - 1
         N = flat.size
         if not N:
@@ -589,78 +557,55 @@ class SetOpDispatcher:
         cut[offs[:-1][np.diff(offs) > 0]] = True
         cut[1:] |= hi[1:] != hi[:-1]
         starts = np.flatnonzero(cut)
-        sub_len = np.diff(np.append(starts, N))
         sub_hi = hi[starts]
-        b_his, b_at, b_n = np.unique(b >> _HI_SHIFT, return_index=True, return_counts=True)
-        seg_his = np.unique(sub_hi)
-        # padded rows are cached only where the reference caches them: all
+        b_lo, b_hi = _halves(b)
+        b_his, b_at, b_n = np.unique(b_hi, return_index=True, return_counts=True)
+        # range k holds b's segment b_his[k]; the last range is empty
+        k = np.minimum(np.searchsorted(b_his, sub_hi), max(len(b_his) - 1, 0))
+        found = b_his[k] == sub_hi if len(b_his) else np.zeros(len(sub_hi), bool)
+        rid = np.where(found, k, len(b_his)).astype(np.int32)
+        # sub-rows are cached only where the reference caches its rows: all
         # rows and b in one segment. The tokens name no store, so a wider
         # cache could serve another store's rows where the reference reads
         # its own (ROADMAP Queue 3 C)
         stack = (
             row_tokens is not None and len(row_tokens) == n
             and all(t is not None for t in row_tokens)
-            and len(set(seg_his.tolist()) | set(b_his.tolist())) == 1
+            and len(set(np.unique(sub_hi).tolist()) | set(b_his.tolist())) == 1
         )
-        kept = np.zeros((len(starts),), np.int64)
-        through = []  # segments b lacks, passed through whole (difference)
-        segs: List[_Segment] = []  # segments that run on the device
-        for h in seg_his:
-            subs = np.flatnonzero(sub_hi == h)
-            k = int(np.searchsorted(b_his, h))
-            if k == len(b_his) or b_his[k] != h:
-                if op == "difference":
-                    through.append(h)
-                    kept[subs] = sub_len[subs]
-                continue
-            lens = sub_len[subs].astype(np.int32)
-            b32 = (b[b_at[k] : b_at[k] + b_n[k]] & _LO).astype(np.uint32)
-            pa = _pow2(int(lens.max()))
-            segs.append(_Segment(
-                int(h), subs, pa, lens, b32,
-                ("rows", int(h), pa, tuple(row_tokens)) if stack else None,
-                None if b_token is None else ("b", b_token, int(h), _pow2(len(b32))),
-            ))
-        self._segment_operands(segs, lo, hi, row_tokens, b_token)
-        for s in segs:
-            s.out, s.cnt = self._batch_fn(op, s.pa)(s.A, s.LA, s.B, s.LB)
-        got = _fetch([t for s in segs for t in (s.out, s.cnt)]) if segs else []
-        for s, out, cnt in zip(segs, got[0::2], got[1::2]):
-            s.out, s.cnt = out, cnt
-            kept[s.subs] = cnt
-        return _assemble(flat, offs, hi, starts, kept, segs, through)
-
-    def _segment_operands(self, segs, lo, hi, row_tokens, b_token):
-        """Each segment's padded rows (A, LA) and b's segment (B, LB) on
-        the device: from the DeviceCache, else staged in one copy for all
-        segments and cached where the segment has a key."""
-        for s in segs:
-            got = s.rows_key and self.device_cache.get(s.rows_key)
-            if got:
-                s.A, s.LA = got
-            got = s.b_key and self.device_cache.get(s.b_key)
-            if got:
-                s.B, s.LB = got
-        rows_up = [s for s in segs if s.A is None]
-        b_up = [s for s in segs if s.B is None]
-        staged = iter(_stage(self._dev(), [x for s in rows_up for x in (lo[hi == s.hi], s.lens)]
-                             + [x for s in b_up for x in (s.b32, np.int32([len(s.b32)]))]))
+        rows_key = ("rows", int(sub_hi[0]), tuple(row_tokens)) if stack else None
+        b_key = None if b_token is None else ("b", b_token, len(b))
+        rows = rows_key and self.device_cache.get(rows_key)
+        bt = b_key and self.device_cache.get(b_key)
+        parts = []
+        if not rows:
+            parts += [lo, np.append(starts, N).astype(np.int32), rid]
+        if not bt:
+            table = np.zeros((len(b_his) + 1, 2), np.int32)
+            table[:-1, 0], table[:-1, 1] = b_at, b_n
+            parts += [b_lo, table.ravel()]
+        staged = iter(_stage(self._dev(), parts))
         # what is cached is cloned out of the one upload, which it would
         # otherwise keep alive
-        for s in rows_up:
-            vals, s.LA = next(staged), next(staged)
-            s.A = _pad_dev(vals, s.LA, s.pa)
-            if s.rows_key:
-                s.LA = s.LA.clone()
-                self.device_cache.put(
-                    s.rows_key, [t[0] for t in row_tokens], (s.A, s.LA),
-                    4 * (s.A.numel() + s.LA.numel()),
-                )
-        for s in b_up:
-            s.B, s.LB = next(staged), next(staged)
-            if s.b_key:
-                s.B, s.LB = s.B.clone(), s.LB.clone()
-                self.device_cache.put(s.b_key, [b_token[0]], (s.B, s.LB), 4 * (s.B.numel() + 1))
+        if not rows:
+            rows = tuple(next(staged) for _ in range(3))
+            if rows_key:
+                rows = tuple(t.clone() for t in rows)
+                self.device_cache.put(rows_key, [t[0] for t in row_tokens], rows,
+                                      4 * sum(t.numel() for t in rows))
+        if not bt:
+            bt = (next(staged), next(staged).view(-1, 2))
+            if b_key:
+                bt = tuple(t.clone() for t in bt)
+                self.device_cache.put(b_key, [b_token[0]], bt, 4 * sum(t.numel() for t in bt))
+        sub_offs, words = _run_ragged(op, *rows, *bt)
+        kept = np.diff(sub_offs)
+        res = (np.repeat(sub_hi.astype(np.uint64), kept) << _HI_SHIFT) | words
+        res_offs = np.zeros((n + 1,), np.int64)
+        sub_row = np.searchsorted(offs, starts, side="right") - 1
+        np.cumsum(np.bincount(sub_row, weights=kept, minlength=n).astype(np.int64),
+                  out=res_offs[1:])
+        return res, res_offs
 
     def _mesh(self):
         """The dispatcher's device mesh (parallel/mesh.py), on its device."""
@@ -945,17 +890,27 @@ class SetOpDispatcher:
                 elif lb is not None and op == "union":
                     passthrough.append((pi, hi, lb))
 
-        # Bucket sub-jobs by padded shapes.
+        # Union and the member sweep's intersect sub-jobs run a batched op
+        # a bucket of padded (pow2) shapes; every other intersect or
+        # difference sub-job runs in one ragged setop_rows launch.
         buckets: Dict[Tuple[int, int], List[int]] = {}
+        ragged: List[int] = []
         for i, (_, _, a, b) in enumerate(sub):
-            buckets.setdefault((_pow2(len(a)), _pow2(len(b))), []).append(i)
+            pa = _pow2(len(a))
+            if op == "union" or self._sweeps(op, pa):
+                buckets.setdefault((pa, _pow2(len(b))), []).append(i)
+            else:
+                ragged.append(i)
 
         # Regroup per pair in one pass. A (pair, hi) key lands either in a
         # device sub-job (segment present in both operands) or in
         # passthrough (present in exactly one) — never both.
         by_pair: List[Dict[int, np.ndarray]] = [dict() for _ in pairs]
-        for (pa, pb), idxs in buckets.items():
-            outs = self._run_bucket(op, pa, pb, [sub[i] for i in idxs])
+        runs = [(idxs, self._run_bucket(op, pa, pb, [sub[i] for i in idxs]))
+                for (pa, pb), idxs in buckets.items()]
+        if ragged:
+            runs.append((ragged, self._run_pairs_ragged(op, [sub[i] for i in ragged])))
+        for idxs, outs in runs:
             for (pi, hi, _, _), res in zip((sub[i] for i in idxs), outs):
                 by_pair[pi][hi] = res
         for pi, hi, lo in passthrough:
@@ -970,8 +925,8 @@ class SetOpDispatcher:
     def _run_bucket(self, op, pa, pb, jobs):
         """One batched op over the (pair, hi, a, b) sub-jobs of a bucket:
         the rows go up in one copy, are padded to (n, pa) and (n, pb) on
-        the device, and come back in one copy. Intersect and difference
-        run on the hand-written kernels; union on setops.union."""
+        the device, and come back in one copy. Intersect runs on the
+        member sweep (K1) and its compaction; union on setops.union."""
         n = len(jobs)
         dev = self._dev()
         a_vals, a_lens, b_vals, b_lens = _stage(dev, [
@@ -988,9 +943,25 @@ class SetOpDispatcher:
             )
             out, cnt = setop_rows.to_bits(out), cnt.to(torch.int32)
         else:
-            out, cnt = self._batch_fn(op, pa)(A, a_lens, B, b_lens)
+            out, cnt = member_sweep.intersect_batch(A, a_lens, B, b_lens)
         out, cnt = _fetch([out, cnt])
         return [out[i, : cnt[i]].copy() for i in range(n)]
+
+    def _run_pairs_ragged(self, op, jobs):
+        """Intersect or difference of the (pair, hi, a, b) sub-jobs in one
+        setop_rows launch: the a's back to back as the rows, the b's back
+        to back as B with one range a sub-job; all of it goes up in one
+        copy, and the kept words come back alone."""
+        n = len(jobs)
+        a_len = np.fromiter((len(j[2]) for j in jobs), np.int64, n)
+        b_len = np.fromiter((len(j[3]) for j in jobs), np.int64, n)
+        table = np.stack([_offsets(b_len)[:-1], b_len], axis=1).astype(np.int32)
+        A, offs, rid, B, ranges = _stage(self._dev(), [
+            np.concatenate([j[2] for j in jobs]), _offsets(a_len),
+            np.arange(n, dtype=np.int32), np.concatenate([j[3] for j in jobs]), table.ravel(),
+        ])
+        res_offs, words = _run_ragged(op, A, offs, rid, B, ranges.view(-1, 2))
+        return [words[res_offs[i] : res_offs[i + 1]] for i in range(n)]
 
 
 # Module-level singleton used by the executor. Bound to CUDA by default;

@@ -582,14 +582,14 @@ def test_cluster_phase_on_cpu(tmp_path):
         chunk=400, vec_chunk=100, log=lambda m: None)
     assert out["load"]["edges"] == 3 + 30 + 300 + 500
     assert out["load"]["tablets"]["child"] != out["load"]["tablets"]["tag"]
-    assert out["launches"]["member_sweep"] >= 3 and out["launches"]["vector_topk"] >= 3
-    assert out["reads"]["b"]["k1"] >= 1 and out["reads"]["b"]["rpcs"] > 0
+    assert out["launches"]["setop_rows"] >= 3 and out["launches"]["vector_topk"] >= 3
+    assert out["reads"]["b"]["setops"] >= 1 and out["reads"]["b"]["rpcs"] > 0
     assert out["fault"]["follower_reads"] >= 1 and out["move"]["reads"] >= 1
     assert out["move"]["reads_by_flip"]["straddling"] >= 1
     assert [p for p in out["move"]["phases_s"] if p != "move.chunk"] == [
         "move.begin", "move.copy", "move.fence", "move.delta", "move.flip", "move.drop"]
     assert out["vectors"]["rows"] == 300 and out["card_apps"] == []
-    assert out["sweep_shapes"] and out["captured"][0]
+    assert out["captured"][0]
     assert _children() == []
 
 
@@ -611,8 +611,8 @@ def test_write_phase_lsm_arm_on_cpu(monkeypatch, tmp_path):
         edge_chunk=60, n_emails=30, n_pre=10, upsert_threads=4, upserts_per_thread=15,
         n_accounts=16, bank_threads=4, transfers_per_thread=8, log=lambda m: None,
     )
-    assert out["load"]["vectors"] == 75 and out["u2"]["sweeps"] >= 1
-    assert out["after_restart_launches"]["member_sweep"] >= 1
+    assert out["load"]["vectors"] == 75 and out["u2"]["setops"] >= 1
+    assert out["after_restart_launches"]["setop_rows"] >= 1
     assert out["after_restart_launches"]["vector_topk"] >= 16
     assert [site[1:] for site in out["restart_topk_sites"]] == [(10, "euclidean", False)]
     assert "similar_to" in out["read_ms"]["first"]

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 import chip_smoke
-from dgraph_tpu_torch.ops import member_sweep
+from dgraph_tpu_torch.ops import setop_rows
 from dgraph_tpu_torch.worker import groups
 from dgraph_tpu_torch.worker.groups import DistributedCluster
 from dgraph_tpu_torch.worker.harness import ProcCluster
@@ -33,8 +33,8 @@ def card():
 @pytest.mark.cuda
 def test_proc_cluster_answers_b_with_k1_on_the_card(card, tmp_path):
     """1 group x 3 replica processes over a small graph: (b) on the
-    forced device path equals the host path and numpy, K1 launched on
-    the coordinator's card, and no replica maps the CUDA driver."""
+    forced device path equals the host path and numpy, its filtered level
+    launched setop_rows on the coordinator's card, and no replica maps the CUDA driver."""
     g = chip_smoke.make_graph(10, 2000, roots=5)
     c = ProcCluster(device="cuda", n_groups=1, replicas=3, data_dir=str(tmp_path))
     try:
@@ -42,10 +42,10 @@ def test_proc_cluster_answers_b_with_k1_on_the_card(card, tmp_path):
         for text in chip_smoke.nquad_chunks(g, 2000):
             c.new_txn().mutate_rdf(set_rdf=text, commit_now=True)
         chip_smoke.check_replicas_off_card(c, on_card=True)
-        launches = member_sweep.LAUNCHES
+        launches = setop_rows.LAUNCHES
         with chip_smoke.forced_device():
             dev = c.query(chip_smoke.QUERIES["b"], want="raw")["data"].raw
-        assert member_sweep.LAUNCHES > launches
+        assert setop_rows.LAUNCHES > launches
         with chip_smoke.forced_device(False):
             host = c.query(chip_smoke.QUERIES["b"], want="raw")["data"].raw
         assert dev == host

@@ -8,8 +8,9 @@ FORCE_DEVICE and PALLAS knobs patched the same way in both modules (the
 knobs are module globals read at import). Operands straddle the 2^32
 segment boundary and include compressed (packed) posting lists. Results
 must be equal exactly, and equal to numpy's set ops. The forced device
-path uploads each segment of a shared operand once, never splits rows
-one by one, and caches its uploads under tokens that a commit drops.
+path uploads a shared operand once, whole, never splits rows one by one,
+runs each entry's intersect or difference in one setop_rows call, and
+caches its uploads under tokens that a commit drops.
 Last, the reference's own tests of these paths (tests/
 test_shortest_recurse.py, and test_dispatch_cache.py's chain and cache
 cases) run on both packages through the runner of
@@ -226,10 +227,12 @@ def _ragged(rows):
 @pytest.mark.parametrize("op", ["intersect", "difference"])
 @pytest.mark.parametrize("width", [60, 400], ids=["sweep", "setop_rows"])
 def test_shared_operand_uploads_once_per_segment(op, width, monkeypatch):
-    """Rows across 2^32 against one b on the forced device path: b's
-    segment goes up once per hi, whatever the number of rows, and comes
-    from the DeviceCache after; no row is split on its own; the answers
-    equal the reference dispatcher's and numpy's."""
+    """Rows across 2^32 against one b on the forced device path, rows the
+    member sweep takes on the pair path (60) and wider ones (400): b's lo
+    words go up once, whole, its segments as ranges of one table, and come
+    from the DeviceCache after; no segment goes up alone and no row is
+    split alone; each call is one setop_rows launch and no K1; the
+    answers equal the reference dispatcher's and numpy's."""
     monkeypatch.setattr(port, "_FORCE_DEVICE", True)
     monkeypatch.setattr(port, "_USE_PALLAS", True)
     monkeypatch.setattr(ref, "_FORCE_DEVICE", True)
@@ -242,23 +245,31 @@ def test_shared_operand_uploads_once_per_segment(op, width, monkeypatch):
     b = _straddle(rng, 2000)
     segs = real_split(b)
     assert len(segs) == 2
+    b_lo = (b & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+
+    def uploads():
+        """(uploads of b's lo words whole, of each segment's alone)"""
+        def n(x):
+            return sum(p.size == x.size and np.array_equal(p.view(np.uint32), x) for p in staged)
+        return n(b_lo), [n(s32) for s32 in segs.values()]
+
     d = port.SetOpDispatcher(device="cpu")
     flat, offs = _ragged(rows)
     wf, wo = ref.SetOpDispatcher().run_rows_vs_one_ragged(op, flat, offs, b)
     for call in range(2):
         staged.clear()
+        calls, sweeps = setop_rows.PLAIN_CALLS, member_sweep.PLAIN_CALLS
         gf, go = d.run_rows_vs_one_ragged(op, flat, offs, b, b_token=(b"b", 1))
+        assert (setop_rows.PLAIN_CALLS - calls, member_sweep.PLAIN_CALLS - sweeps) == (1, 0)
         np.testing.assert_array_equal(go, wo)
         np.testing.assert_array_equal(gf, wf)
-        ups = [sum(np.array_equal(p.view(np.uint32), s32) for p in staged) for s32 in segs.values()]
-        assert ups == ([1, 1] if call == 0 else [0, 0])  # the second call: the cache
+        assert uploads() == ((1, [0, 0]) if call == 0 else (0, [0, 0]))  # then the cache
     np_op = np.intersect1d if op == "intersect" else np.setdiff1d
     np.testing.assert_array_equal(wf, np.concatenate([np_op(r, b) for r in rows]))
     staged.clear()
     for g, w in zip(d.run_rows_vs_one(op, rows, b), ref.SetOpDispatcher().run_rows_vs_one(op, rows, b)):
         np.testing.assert_array_equal(g, w)
-    assert [sum(np.array_equal(p.view(np.uint32), s32) for p in staged)
-            for s32 in segs.values()] == [1, 1]
+    assert uploads() == (1, [0, 0])
     assert splits == []
 
 
@@ -281,11 +292,12 @@ def test_shared_operand_in_other_segments(pair, op):
 
 
 def test_segment_cache_entries_dropped_by_a_commit(monkeypatch):
-    """The ("b", token, hi, pb) entries of a shared operand over two
-    segments are reused and go when the port's MemoryLayer invalidates
-    their key. Rows over two segments are not cached by their tokens, as
-    in the reference, whose tokens name no store: rows of another store
-    under the same tokens are read as they are."""
+    """The one ("b", token, len(b)) entry of a shared operand over two
+    segments (its lo words and its table of segment ranges) is reused and
+    goes when the port's MemoryLayer invalidates its key. Rows over two
+    segments are not cached by their tokens, as in the reference, whose
+    tokens name no store: rows of another store under the same tokens are
+    read as they are."""
     monkeypatch.setattr(port, "_FORCE_DEVICE", True)
     d = port.DISPATCHER
     d.bind("cpu")
@@ -295,15 +307,16 @@ def test_segment_cache_entries_dropped_by_a_commit(monkeypatch):
     toks = [(b"seg-row%d" % i, 2) for i in range(5)]
     b = _straddle(rng, 3000)
     first = d.run_rows_vs_one("difference", rows, b, row_tokens=toks, b_token=(b"seg-b", 2))
-    keys = set(d.device_cache._entries)
-    assert {k for k in keys if k[0] == "b"} == {
-        ("b", (b"seg-b", 2), h, port._pow2(len(x))) for h, x in port.split_segments(b).items()
-    }
-    assert not any(k[0] == "rows" for k in keys)
+    assert set(d.device_cache._entries) == {("b", (b"seg-b", 2), len(b))}
+    B, ranges = d.device_cache.get(("b", (b"seg-b", 2), len(b)))
+    np.testing.assert_array_equal(B.numpy().view(np.uint32), (b & np.uint64(0xFFFFFFFF)))
+    seg = port.split_segments(b)
+    assert ranges.tolist() == [[0, len(seg[min(seg)])], [len(seg[min(seg)]), len(seg[max(seg)])],
+                               [0, 0]]  # the last range: empty, for segments b lacks
     hits = d.device_cache.hits
     _assert_lists(d.run_rows_vs_one("difference", rows, b, row_tokens=toks, b_token=(b"seg-b", 2)),
                   first)
-    assert d.device_cache.hits == hits + 2
+    assert d.device_cache.hits == hits + 1
     other = [_straddle(rng, 300) for _ in range(5)]
     _assert_lists(d.run_rows_vs_one("difference", other, b, row_tokens=toks),
                   [NP_OPS["difference"](x, b) for x in other])
@@ -312,9 +325,10 @@ def test_segment_cache_entries_dropped_by_a_commit(monkeypatch):
 
 
 def test_kernels_serve_the_device_path(monkeypatch):
-    """On the forced device path intersect and difference reach
-    setop_rows (its plain version on the CPU) in all three entries, and
-    K1 with its compaction takes intersect rows of <= 128."""
+    """On the forced device path intersect and difference reach setop_rows
+    (its plain version on the CPU) in one call an entry, whatever the
+    segments; K1 with its compaction takes intersect pairs of <= 128 a
+    segment, and only on the pair path, as the reference's Pallas branch."""
     monkeypatch.setattr(port, "_FORCE_DEVICE", True)
     monkeypatch.setattr(port, "_USE_PALLAS", True)
     d = port.SetOpDispatcher(device="cpu")
@@ -326,10 +340,53 @@ def test_kernels_serve_the_device_path(monkeypatch):
         d.run_rows_vs_one_ragged(op, *_ragged(rows), b)
         d.run_rows_vs_one(op, rows, b)
         d.run_pairs(op, [(r, b) for r in rows])
-        assert setop_rows.PLAIN_CALLS >= calls + 5  # two segments, two, one bucket
+        assert setop_rows.PLAIN_CALLS == calls + 3  # two segments each, one launch an entry
     sweeps = member_sweep.PLAIN_CALLS
-    d.run_rows_vs_one("intersect", [_straddle(rng, 100)], b)
-    assert member_sweep.PLAIN_CALLS == sweeps + 2  # one a segment
+    small = _straddle(rng, 100)
+    d.run_rows_vs_one("intersect", [small], b)
+    assert member_sweep.PLAIN_CALLS == sweeps  # not on the shared path
+    d.run_pairs("intersect", [(small, b)])
+    assert member_sweep.PLAIN_CALLS == sweeps + 1  # both segments pad to one bucket
+
+
+def _edge_rows(rng):
+    """Rows over three segments (b holds two of them), empty rows, and
+    uids whose lo word is UINT32_MAX, against b."""
+    top = np.array([SEG - 1, 2 * SEG - 1], np.uint64)  # lo word 0xFFFFFFFF
+    rows = [np.zeros(0, np.uint64)]
+    for n in rng.integers(0, 150, size=20):
+        r = np.union1d(_straddle(rng, int(n)), rng.choice(top, size=int(n) % 3))
+        if n % 3 == 0:
+            r = np.union1d(r, 3 * SEG + rng.integers(0, 50, size=4).astype(np.uint64))
+        rows.append(r)
+    rows.append(np.zeros(0, np.uint64))
+    return rows, np.union1d(_straddle(rng, 2500), top)
+
+
+@pytest.mark.parametrize("pair", MODES[1:], ids=MODE_IDS[1:], indirect=True)
+@pytest.mark.parametrize("op", ["intersect", "difference"])
+@pytest.mark.parametrize("entry", ["ragged", "list", "pairs"])
+def test_ragged_route_matches_reference(pair, op, entry):
+    """The ragged route (one setop_rows call over every sub-row) against
+    the reference dispatcher and numpy, over empty rows, rows in a segment
+    b lacks and UINT32_MAX lo words."""
+    r, p = pair
+    rows, b = _edge_rows(np.random.default_rng(16))
+    want = [NP_OPS[op](x, b) for x in rows]
+    if entry == "ragged":
+        flat, offs = _ragged(rows)
+        wf, wo = r.run_rows_vs_one_ragged(op, flat, offs, b)
+        gf, go = p.run_rows_vs_one_ragged(op, flat, offs, b)
+        np.testing.assert_array_equal(go, wo)
+        np.testing.assert_array_equal(np.asarray(gf, np.uint64), np.asarray(wf, np.uint64))
+        np.testing.assert_array_equal(np.asarray(wf, np.uint64), np.concatenate(want))
+    elif entry == "list":
+        _assert_lists(p.run_rows_vs_one(op, rows, b), r.run_rows_vs_one(op, rows, b))
+        _assert_lists(r.run_rows_vs_one(op, rows, b), want)
+    else:
+        pairs = [(x, b) for x in rows] + [(b, x) for x in rows[::4]]
+        _assert_lists(p.run_pairs(op, pairs), r.run_pairs(op, pairs))
+        _assert_lists(r.run_pairs(op, pairs), [NP_OPS[op](x, y) for x, y in pairs])
 
 
 # ---------------------------------------------------------------------------

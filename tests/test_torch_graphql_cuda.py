@@ -13,7 +13,7 @@ import pytest
 import torch
 
 import chip_smoke
-from dgraph_tpu_torch.ops import member_sweep, vector_topk
+from dgraph_tpu_torch.ops import setop_rows, vector_topk
 
 
 @pytest.fixture
@@ -27,18 +27,18 @@ def card():
 def test_graphql_reads_launch_k1_kv1_kv2_on_the_card(card):
     """A 20-wide graph of 8,420 edges and 20,000 x 64 vectors (IVF on
     `emb`, brute on `emb_small`'s 5,000), served over the HTTP front by
-    Servers on the card: every (12a)-(12e) check holds, K1 launched in
-    (12b) and on the subscribed commits, KV1 and KV2 in (12d), and each
+    Servers on the card: every (12a)-(12e) check holds, setop_rows launched
+    in (12b) and on the subscribed commits, KV1 and KV2 in (12d), and each
     equals its plain version (K1 and KV1 exactly, KV2 within
     `ivf_scan.tolerance`) on the inputs they were given."""
     quiet = lambda m: None  # noqa: E731
     data = chip_smoke.graphql_data("cuda", fanout=20, pool=20_000, n=20_000, d=64,
                                    n_named=1_000, n_small=5_000, ivf_threshold=8_000, log=quiet)
-    sweeps, topks = member_sweep.LAUNCHES, vector_topk.LAUNCHES
+    setops, topks = setop_rows.LAUNCHES, vector_topk.LAUNCHES
     out = chip_smoke.serve_graphql(*data.values(), (), n_flips=1, reps=1, log=quiet)
-    assert member_sweep.LAUNCHES > sweeps and vector_topk.LAUNCHES > topks
-    assert min(out["launches"].values()) >= 1
-    assert out["b_sweeps"] >= 1 and out["commits"]["k1_per_commit_subscribed"][0] >= 1
+    assert setop_rows.LAUNCHES > setops and vector_topk.LAUNCHES > topks
+    assert min(out["launches"][k] for k in ("setop_rows", "vector_topk", "ivf_slab_scan")) >= 1
+    assert out["b_setops"] >= 1 and out["commits"]["setops_per_commit_subscribed"][0] >= 1
     assert out["recall"] >= 0.9
     assert not any(chip_smoke.sweep_shapes_equal(out["sweep_shapes"]).values())
     served = chip_smoke.served_kernels(out["captured"])  # raises on a mismatch

@@ -59,7 +59,7 @@ import chip_smoke
 import test_golden_movies as golden_movies
 from dgraph_tpu.api.server import Server as RefServer
 from dgraph_tpu_torch.api.server import Server
-from dgraph_tpu_torch.ops import member_sweep
+from dgraph_tpu_torch.ops import setop_rows
 from dgraph_tpu_torch.query import dispatch
 
 SIDES = ["ref", "port"]
@@ -1066,7 +1066,7 @@ def restore_into_warm_server(m, tmp, mp):
     the one from before the restore, and the vector index holds each uid
     once."""
     s, g = _small_graph_server(m)
-    plain0 = member_sweep.PLAIN_CALLS
+    plain0 = setop_rows.PLAIN_CALLS
     reads = {**chip_smoke.QUERIES, "v": VEC_READ}
     first = {name: _data(s, q) for name, q in reads.items()}
     bdir = str(tmp / "b")
@@ -1083,7 +1083,7 @@ def restore_into_warm_server(m, tmp, mp):
     assert after == before
     assert len(s.vector_indexes["emb"]) == 20
     if m is M["port"]:
-        assert member_sweep.PLAIN_CALLS > plain0  # the sweep ran, in its plain version
+        assert setop_rows.PLAIN_CALLS > plain0  # the set-op kernel ran, in its plain version
     return entry, after
 
 
@@ -1214,9 +1214,9 @@ def test_ops_phase_on_cpu(tmp_path, monkeypatch):
     assert out["subscriptions"]["committed_vectors_seen"] == [0, 1, 2, 3, 4]
     assert out["cdc"]["undelivered"] > 0 and out["cdc"]["replayed"] >= out["cdc"]["undelivered"]
     assert out["rollup"]["cold_parts"] >= 2
-    assert min(out["launches"].values()) > 0
+    assert out["launches"]["setop_rows"] > 0 and out["launches"]["vector_topk"] > 0
     assert out["restore"]["launches"]["vector_topk"] >= 16
-    assert out["sweep_shapes"] and out["captured"][0]
+    assert out["restore"]["launches"]["setop_rows"] > 0 and out["captured"][0]
 
 
 # ---------------------------------------------------------------------------

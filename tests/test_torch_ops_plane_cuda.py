@@ -15,7 +15,7 @@ import torch
 
 import chip_smoke
 from dgraph_tpu_torch.api.server import Server
-from dgraph_tpu_torch.ops import member_sweep, vector_topk
+from dgraph_tpu_torch.ops import setop_rows, vector_topk
 
 pytestmark = pytest.mark.cuda
 
@@ -32,7 +32,7 @@ def card():
 
 
 def test_member_sweep_over_a_split_list_on_the_card(card, monkeypatch):
-    """Query (b)-(d) over a `tag` index list rolled into parts: K1
+    """Query (b)-(d) over a `tag` index list rolled into parts: setop_rows
     launches on the card, and the answers equal the host path and
     numpy."""
     from dgraph_tpu_torch.posting import pl as plmod
@@ -48,10 +48,10 @@ def test_member_sweep_over_a_split_list_on_the_card(card, monkeypatch):
     rollup_all(s)
     s.new_txn().mutate_rdf(set_rdf=f'<{hex(int(g["hot"][1]))}> <tag> "cold" .', commit_now=True)
     hot = set(int(x) for x in g["hot"]) - {u, int(g["hot"][1])}
-    launches = member_sweep.LAUNCHES
+    launches = setop_rows.LAUNCHES
     with chip_smoke.forced_device():
         dev = {n: chip_smoke._run_query(s, q) for n, q in chip_smoke.QUERIES.items()}
-    assert member_sweep.LAUNCHES > launches
+    assert setop_rows.LAUNCHES > launches
     with chip_smoke.forced_device(False):
         host = {n: chip_smoke._run_query(s, q) for n, q in chip_smoke.QUERIES.items()}
     assert dev == host

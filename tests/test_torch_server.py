@@ -20,7 +20,7 @@ import chip_smoke
 from dgraph_tpu.api.server import Server as RefServer
 from dgraph_tpu_torch.api.server import Server
 from dgraph_tpu_torch.carry import carry_state
-from dgraph_tpu_torch.ops import member_sweep
+from dgraph_tpu_torch.ops import member_sweep, setop_rows
 from dgraph_tpu_torch.query import dispatch
 
 HERE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ref_golden")
@@ -137,10 +137,10 @@ def test_fanout_queries_two_segments(fanout, name, pair, monkeypatch):
     monkeypatch.setattr(dispatch, "_FORCE_DEVICE", force)
     monkeypatch.setattr(dispatch, "_USE_PALLAS", pallas)
     q = chip_smoke.QUERIES[name]
-    calls = member_sweep.PLAIN_CALLS
+    calls, setops = member_sweep.PLAIN_CALLS, setop_rows.PLAIN_CALLS
     got = _data_bytes(port, q)
-    if pallas and name == "b":
-        assert member_sweep.PLAIN_CALLS > calls  # the plain K1 path ran
+    if force and name == "b":  # the level: one setop_rows call over all sub-rows, no K1
+        assert (setop_rows.PLAIN_CALLS, member_sweep.PLAIN_CALLS) == (setops + 1, calls)
     assert got == _data_bytes(ref, q)
     want = chip_smoke.expected(g, "a" if name == "a" else "b")
     assert chip_smoke.extract(name, json.loads(got)) == want
@@ -149,6 +149,17 @@ def test_fanout_queries_two_segments(fanout, name, pair, monkeypatch):
 def test_serve_phase_on_cpu():
     """chip_smoke's main-path phase, rehearsed at a tiny size on the CPU."""
     out = chip_smoke.serve("cpu", fanout=6, pool=400, reps=1, log=lambda m: None)
-    assert out["sweep_per_query"]["b"] >= 1
+    assert out["setop_per_query"]["b"] == 1 and out["sweep_per_query"]["b"] == 0
+    assert list(out["setop_calls"]["b"]) == ["intersect_ragged"]
+    assert len(out["setop_calls"]["d"]["difference_ragged"]) == 1
     assert out["launches"] == 0  # no kernel runs without a card
     assert set(out["queries"]) == set(chip_smoke.QUERIES)
+
+
+def test_k1_read_on_cpu():
+    """chip_smoke's served read that reaches K1 ((c) over a small graph
+    with a rare hot tag), at its full size on the CPU: equal to the host
+    path and numpy, and K1's plain version ran."""
+    out = chip_smoke.k1_read("cpu", log=lambda m: None)
+    assert out["launches"] >= 1 and out["captured"] is not None
+    assert all(pa <= member_sweep.LANE for _, pa, *_ in out["shapes"])

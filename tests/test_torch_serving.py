@@ -50,7 +50,7 @@ from dgraph_tpu.serving.resultcache import ResultCache as RefResultCache
 from dgraph_tpu.utils import observe as ref_observe
 from dgraph_tpu_torch.api.server import Server
 from dgraph_tpu_torch.models import vector
-from dgraph_tpu_torch.ops import ivf_scan, member_sweep, vector_topk
+from dgraph_tpu_torch.ops import ivf_scan, member_sweep, setop_rows, vector_topk
 from dgraph_tpu_torch.posting.lists import LocalCache
 from dgraph_tpu_torch.query import dispatch, subgraph
 from dgraph_tpu_torch.serving import TooManyRequestsError
@@ -710,7 +710,7 @@ def test_rdf_shares_json_value_formats(side):
 @pytest.mark.parametrize("name", ["a", "b"])
 def test_query_rdf_on_the_fanout_graph_counts_the_json_answer(name):
     """chip_smoke phase 9's RDF check at a small size: on the forced
-    device path (the member sweep runs for (b)) the port's N-Quads equal
+    device path (setop_rows runs for (b)) the port's N-Quads equal
     its host path's and the reference's, with one triple per uid edge of
     the JSON answer (neither query asks for a value)."""
     g = chip_smoke.make_graph(fanout=6, pool=400, hot_every=10)
@@ -718,9 +718,9 @@ def test_query_rdf_on_the_fanout_graph_counts_the_json_answer(name):
     chip_smoke.load_graph(ref, g)
     chip_smoke.load_graph(port, g)
     q = chip_smoke.QUERIES[name]
-    calls = member_sweep.PLAIN_CALLS
+    calls = setop_rows.PLAIN_CALLS
     rdf = port.query_rdf(q)
-    assert (member_sweep.PLAIN_CALLS > calls) == (name == "b")
+    assert (setop_rows.PLAIN_CALLS > calls) == (name == "b")
     assert rdf == ref.query_rdf(q)
     assert len(rdf.splitlines()) == chip_smoke.json_edges(
         json.loads(port.query(q, want="raw")["data"].raw))
@@ -861,7 +861,8 @@ def test_front_phase_on_cpu(monkeypatch):
     # orders hit on their second asking
     assert [gf["plan"][f"512 {how}"]["hit_rate"] for how in ("cycle", "repeat")] == [0.5, 0.5]
     assert gf["plan"]["0 cycle"]["hits"] == gf["plan"]["0 repeat"]["hits"] == 0
-    assert gf["sweeps"] >= gf["plan"]["512 cycle"]["sweeps"] >= 1 and gf["sweep_shapes"]
+    # (b)'s level goes through setop_rows (its plain version), not K1
+    assert gf["plan"]["512 cycle"]["setops"] >= 1 and gf["rdf"]["b"]["setops"] >= 1
     assert gf["rdf"]["b"]["triples"] > gf["rdf"]["a"]["triples"] == 6 + 36
     assert gf["result_cache"]["hits"] == len(chip_smoke.QUERIES)
     v = chip_smoke.serve_vectors("cpu", n=6000, d=16, n_named=500, n_small=1000, nq=16,

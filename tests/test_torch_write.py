@@ -37,7 +37,7 @@ from dgraph_tpu.x import config as ref_config
 from dgraph_tpu.zero.zero import TxnConflictError as RefConflict
 from dgraph_tpu_torch.api import server as port_server_mod
 from dgraph_tpu_torch.api.server import Server
-from dgraph_tpu_torch.ops import member_sweep
+from dgraph_tpu_torch.ops import setop_rows
 from dgraph_tpu_torch.query import dispatch
 from dgraph_tpu_torch.x import config
 from dgraph_tpu_torch.zero.zero import TxnConflictError
@@ -455,7 +455,7 @@ def test_group_commit_on_and_off_store_the_same_bytes(monkeypatch):
 def test_group_commit_leaves_no_stale_device_operand():
     """A commit through group commit, then a read on the forced device
     path, sees the new edge; an upsert whose query block reads its own
-    earlier commit through a filtered fan-out (K1's plain version) marks
+    earlier commit through a filtered fan-out (setop_rows' plain version) marks
     every node that commit added."""
     q = '{ q(func: uid(0x2)) { friend @filter(eq(name, "a")) { uid seen } } }'
 
@@ -473,13 +473,13 @@ def test_group_commit_leaves_no_stale_device_operand():
             commit_now=True,
         )
         second = _data(s, q)
-        calls = member_sweep.PLAIN_CALLS
+        calls = setop_rows.PLAIN_CALLS
         s.new_txn().upsert(
             '{ var(func: uid(0x2)) { f as friend @filter(eq(name, "a")) } }',
             set_rdf='uid(f) <seen> "yes" .',
         )
         if side == "port":
-            assert member_sweep.PLAIN_CALLS > calls
+            assert setop_rows.PLAIN_CALLS > calls
             assert s._group_commit is not None
         return [first, second, _data(s, q)]
 
@@ -492,16 +492,16 @@ def test_group_commit_leaves_no_stale_device_operand():
 
 def test_device_reads_beside_committing_threads():
     """Filtered fan-outs on the forced device path from 4 threads while 4
-    others commit: every read answers as on a quiet server, and the
-    member sweep counts every call."""
+    others commit: every read answers as on a quiet server, and setop_rows
+    counts every call."""
     g = chip_smoke.make_graph(fanout=6, pool=300, hot_every=7)
     s = _port()
     chip_smoke.load_graph(s, g)
     s.alter("email: string @index(exact) @upsert .")
     want = _data(s, chip_smoke.QUERIES["b"])
-    calls = member_sweep.PLAIN_CALLS
+    calls = setop_rows.PLAIN_CALLS
     _data(s, chip_smoke.QUERIES["b"])
-    per_read = member_sweep.PLAIN_CALLS - calls
+    per_read = setop_rows.PLAIN_CALLS - calls
     assert per_read >= 1
     seen = []
 
@@ -515,10 +515,10 @@ def test_device_reads_beside_committing_threads():
                 set_obj={"uid": f"_:w{j}", "email": f"w{i}-{j}"}, commit_now=True
             )
 
-    calls = member_sweep.PLAIN_CALLS
+    calls = setop_rows.PLAIN_CALLS
     chip_smoke._threads(lambda f, a: f(*a), [(reader, ())] * 4 + [(writer, (i,)) for i in range(4)])
     assert seen == [want] * 24
-    assert member_sweep.PLAIN_CALLS - calls == 24 * per_read
+    assert setop_rows.PLAIN_CALLS - calls == 24 * per_read
 
 
 # -- on-disk stores and restarts ------------------------------------------------
@@ -723,8 +723,8 @@ def test_write_phase_on_cpu(backend, tmp_path):
         edge_chunk=60, n_emails=30, n_pre=10, upsert_threads=4, upserts_per_thread=15,
         n_accounts=16, bank_threads=4, transfers_per_thread=8, log=lambda m: None,
     )
-    assert out["u2"]["sweeps"] >= 1 and out["u2"]["marked"] >= 1
-    assert out["after_restart_launches"]["member_sweep"] >= 1
+    assert out["u2"]["setops"] >= 1 and out["u2"]["marked"] >= 1
+    assert out["after_restart_launches"]["setop_rows"] >= 1
     # the KV1 calls credited after the restart are the ones captured for
     # the comparison with the plain version
     assert out["after_restart_launches"]["vector_topk"] >= 16
