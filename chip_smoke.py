@@ -16,7 +16,14 @@ Phases, each of which fails the run when it fails:
      where the regimes cross); (3b) setop_rows (K2 + K3) the same way, in
      its padded and its ragged form (`setop_grid`): every row kind, then
      timed shapes up to (b)'s whole level and (d)'s difference, each
-     ragged call twice back to back;
+     ragged call twice back to back; (3c) setop_merge the same way
+     (`merge_grid`): the union of list pairs (K4), the k-way merge (K5)
+     and the k-way intersection (K6), every kind of MERGE_KINDS (random,
+     all, none, UINT32_MAX, across 2^31, empty a or b, one uid,
+     duplicates inside a list) at pairs short, across tiles, lopsided and
+     tiny, k = 2, 3 and 256, and a pair of 2^20, each call twice back to
+     back; timed at `plain_op_input`'s shapes and the served reads' (e),
+     (c); then from 2 threads on 2 streams;
   4. the main path: an embedded `Server(device="cuda")` loads a 3-level
      fan-out graph (1 -> 100 -> 10k -> 1M edges, the level-3 pool split
      across the 2^32 uid segment boundary, a 1%-hot `tag` on every level-3
@@ -28,6 +35,16 @@ Phases, each of which fails the run when it fails:
      difference must be one launch. Then K1's read: (c) over a small graph
      with a rare hot tag (`k1_read`), whose AND chain reaches the member
      sweep through the pair path, equal to the host path and numpy;
+     (4c) the reads that reach K4-K6 (`merge_phase`): on phase 4's
+     server (e) an OR filter at level 3 (K4 over the two segments'
+     pairs) and (f) `@recurse(depth: 4)` from 0x1 (K4, K5), then on a
+     one-segment server of the same graph (`make_graph(low=True)`,
+     bulk-loaded) (c) (K6), (e) and (f) (K5); each equal to the host path
+     and numpy ((f): a BFS over the edge arrays), each of K4-K6 launched
+     and held to plain on every input the reads gave it, and no call of
+     setops' plain union, merge_sorted or intersect_many; each read timed
+     in a first round (the device path first, cold) and, but (f) on the
+     one-segment server, once more with the host path first (both warm);
   5. K1 once more, on the inputs K1's read gave it, after checking
      that they meet its precondition (rows sorted as uint32), and
      setop_rows on every shape phase 4 gave it;
@@ -177,11 +194,14 @@ Phases, each of which fails the run when it fails:
      mesh made is held against its plain version.
 
 `--profile` adds, for the named queries (a-d of phase 4, e-i of phase
-7), where one warm run's time goes: host functions by own time
-(cProfile) and the card's busy share (torch.profiler). `--crossover`
+7; with `--merge-only`, e and f of phase 4c on both paths), where one
+warm run's time goes: host functions by own time (cProfile) and the
+card's busy share (torch.profiler). `--crossover`
 runs phases 1-2 and then, in place of the others, measures where KV1's
 radix regime starts to beat its one-pass regime (`topk_crossover`);
-`--ops-only` runs phases 1-2 and then phase 10 alone, on rows made
+`--merge-only` runs phases 1-2 and then phases 3c and 4c alone (4c on
+phase 4's graph bulk-loaded); `--ops-only` runs phases 1-2 and then
+phase 10 alone, on rows made
 anew; `--cluster-only` likewise phase 11, on the full graph;
 `--graphql-only` likewise phase 12, on the graph bulk-loaded through the
 native loader and phase 7's vectors in Servers of its own; `--mesh-only`
@@ -348,13 +368,15 @@ def _shape_key(args):
 class _Capture:
     """Keeps, of the inputs the main path hands the named wrappers of a
     kernel module (K1's `membership_batch` by default), the first of each
-    shape, cloned, and the largest set, delegating every call unchanged.
-    With several names, a shape's key starts with the wrapper's name."""
+    shape (`key` of the inputs, `_shape_key` by default), cloned, and the
+    largest set, delegating every call unchanged. With several names, a
+    shape's key starts with the wrapper's name."""
 
-    def __init__(self, module, names=("membership_batch",)):
+    def __init__(self, module, names=("membership_batch",), key=None):
         self.module = module
         self.real = {n: getattr(module, n) for n in names}
         self.tagged = len(names) > 1
+        self.key = key or _shape_key
         self.args = None
         self.shapes = []
         self.by_shape = {}
@@ -363,7 +385,7 @@ class _Capture:
         real = self.real[name]
 
         def call(*args):
-            key = _shape_key(args)
+            key = self.key(args)
             key = (name,) + key if self.tagged else key
             self.shapes.append(key)
             if key not in self.by_shape:
@@ -536,12 +558,13 @@ def _run_query(server, q):
     return server.query(q, want="raw")["data"].raw
 
 
-def profile_query(server, q, log=print, top=12, reps=5):
+def profile_query(server, q, log=print, top=12, reps=5, traces=3):
     """Where one warm query's time goes: the host functions by own time
     (cProfile), and the card's busy share (torch.profiler: the sum of
     device kernel and copy time over the query's wall time, over `reps`
-    calls). `q` is a DQL string, or a callable that runs the work.
-    Returns the card's busy and wall ms a call and its idle share."""
+    calls, the fullest of `traces` traces). `q` is a DQL string, or a
+    callable that runs the work. Returns the card's busy and wall ms a
+    call and its idle share."""
     import cProfile
     import io
     import pstats
@@ -564,7 +587,7 @@ def profile_query(server, q, log=print, top=12, reps=5):
         if line.strip() and line.lstrip()[0].isdigit():
             log("      " + line.strip())
     best = None
-    for _ in range(3):  # a trace now and then comes back without kernels
+    for _ in range(traces):  # a trace now and then comes back without kernels
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
             for _ in range(reps):
@@ -580,7 +603,8 @@ def profile_query(server, q, log=print, top=12, reps=5):
             best = (busy_ms, wall_ms, rows)
     busy_ms, wall_ms, rows = best
     log(f"device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall per call over {reps} calls "
-        f"(idle share {1 - busy_ms / wall_ms:.4f}; the fullest of 3 traces); by kernel, per call:")
+        f"(idle share {1 - busy_ms / wall_ms:.4f}; the fullest of {traces} traces); by kernel, "
+        "per call:")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"      {e.self_device_time_total / 1e3 / reps:10.3f} ms  x{e.count / reps:<5g} "
             f"{e.key[:90]}")
@@ -1533,6 +1557,486 @@ def setop_served(by_shape, log=print):
             raise AssertionError(f"main-path {key}: library != plain")
         log(f"{name} at {key[1:]} (served): " + _fmt(res[name]))
     return res
+
+
+# ---------------------------------------------------------------------------
+# K4-K6: setop_merge (union, k-way merge, k-way intersection) against plain
+# ---------------------------------------------------------------------------
+
+MERGE_WRAPPERS = ("union_ragged", "merge_sorted", "intersect_many")
+MERGE_REFS = {"union_ragged": "dgraph_tpu/ops/setops.py:102",
+              "merge_sorted": "dgraph_tpu/ops/setops.py:121",
+              "intersect_many": "dgraph_tpu/ops/setops.py:141"}
+MERGE_KINDS = ("random", "all", "none", "max", "sign", "la0", "lb0", "one", "dups")
+# the reads that reach K4-K6 (phase 4c) beside (c): an OR filter at level 3
+# (every level-3 node is hot or cold, so every row comes back whole, each
+# uid once) and a @recurse over the whole graph
+MERGE_QUERIES = {
+    "e": '{ q(func: uid(0x1)) { child { child { uid child @filter('
+         'eq(tag, "hot") OR eq(tag, "cold")) { uid } } } } }',
+    "f": "{ q(func: uid(0x1)) @recurse(depth: 4) { uid child } }",
+}
+
+
+def merge_lists_case(lens, seed, kind="random"):
+    """Sorted lists for setop_merge, made with numpy from `seed`, back to
+    back: (X, offs) int32 numpy, uids as their bits, list i at
+    X[offs[i]:offs[i + 1]], of about lens[i] uids. Half of each list comes
+    from one pool, so lists overlap. Kinds: random (over 2^32), all
+    (every list holds list 0, a pair's b its a), none (even lists odd
+    values, odd lists even), max (every list ends with UINT32_MAX), sign
+    (within 4096 of 2^31), la0 (the even lists empty: every a, and list
+    0), lb0 (the odd lists empty), one (one uid a list, from 4 values),
+    dups (values from a narrow range, repeats kept)."""
+    rng = np.random.default_rng(seed)
+    lens = np.array(lens, np.int64)
+    if kind == "la0":
+        lens[0::2] = 0
+    if kind == "lb0":
+        lens[1::2] = 0
+    if kind == "one":
+        lens[:] = 1
+    top = int(lens.max(initial=0))
+    lo, hi = {"sign": ((1 << 31) - 4096, (1 << 31) + 4096), "one": (7, 11),
+              "dups": (0, max(4, top // 4))}.get(kind, (0, 1 << 32))
+    pool = rng.integers(lo, hi, size=max(2 * top, 1), dtype=np.uint64)
+    lists = []
+    for i, k in enumerate(lens.tolist()):
+        x = np.where(rng.random(k) < 0.5, pool[rng.integers(0, pool.size, size=k)],
+                     rng.integers(lo, hi, size=k, dtype=np.uint64))
+        if kind == "none":
+            x = x | np.uint64(1) if i % 2 == 0 else x & ~np.uint64(1)
+        if kind == "all" and i:
+            x = np.concatenate([x, lists[i - 1] if i % 2 else lists[0]])
+        x = np.sort(x) if kind in ("one", "dups") else np.unique(x)
+        if kind == "max" and x.size:
+            x[-1] = U32
+        lists.append(x)
+    offs = np.zeros(len(lists) + 1, np.int64)
+    np.cumsum([x.size for x in lists], out=offs[1:])
+    X = np.concatenate(lists) if lists else np.zeros(0, np.uint64)
+    return np.ascontiguousarray(X.astype(np.uint32)).view(np.int32), offs.astype(np.int32)
+
+
+def merge_shape_key(args):
+    """(N, lists) of a setop_merge call's (X, offs)."""
+    return (int(args[0].numel()), int(args[1].numel()) - 1)
+
+
+def merge_words(name, res):
+    """A setop_merge result, or its plain version's, as what it answers:
+    the rows' offsets and their kept words."""
+    out, head = res
+    rows = head.numel() - 1 if name == "union_ragged" else 1
+    off = head[: rows + 1]
+    return off, out[: int(off[-1])]
+
+
+def library_merge(name, X, offs):
+    """The yardstick, timed here and called nowhere in the port: one
+    torch.unique(sorted=True) over the lists' words (union: as keys pair
+    << 32 | uid, made beforehand) for K4 and K5; a torch.isin a list and
+    one torch.masked_select for K6. Returns the call; it gives the kept
+    uids, flat, as int64 u32 values."""
+    import torch
+
+    x = _to_i64(X)
+    lens = (offs[1:] - offs[:-1]).to(torch.int64)
+    if name == "union_ragged":
+        pair = torch.repeat_interleave(torch.arange(lens.numel(), device=X.device) // 2, lens,
+                                       output_size=X.numel())
+        keys = (pair << 32) | x
+        return lambda: torch.unique(keys, sorted=True) & U32
+    if name == "merge_sorted":
+        return lambda: torch.unique(x, sorted=True)
+    parts = list(torch.split(x, lens.tolist()))
+    a = parts[0]
+
+    def isin():
+        keep = torch.ones(a.shape, dtype=torch.bool, device=a.device)
+        for p in parts[1:]:
+            keep &= torch.isin(a, p)
+        return torch.masked_select(a, keep)
+
+    return isin
+
+
+def many_sector_bytes(X, offs):
+    """The bytes of lists 1 .. k - 1 of (X, offs) that a k-way
+    intersection must read: of each list, the 32-byte sectors that hold,
+    for each word of list 0 still kept after the lists before it, its
+    equal element or, where the list has none, its neighbours there
+    (`ragged_b_sector_bytes`, X 32-byte aligned)."""
+    import torch
+
+    lo = offs.tolist()
+    a = X[lo[0]:lo[1]]
+    one = torch.tensor([0, 0], dtype=torch.int32, device=X.device)
+    rid = torch.zeros(1, dtype=torch.int32, device=X.device)
+    nbytes = 0
+    for l in range(1, len(lo) - 1):
+        if not a.numel():
+            break
+        one[1] = a.numel()
+        ranges = torch.tensor([[lo[l], lo[l + 1] - lo[l]]], dtype=torch.int32, device=X.device)
+        nbytes += ragged_b_sector_bytes(a, one, rid, X, ranges)[0]
+        a = a[torch.isin(_to_i64(a), _to_i64(X[lo[l]:lo[l + 1]]))]
+    return nbytes
+
+
+def merge_bound_ms(name, X, offs, off, words):
+    """Least time any correct method could take, in ms: the bytes. Read
+    once: the offsets and, for a union or a k-way merge, every word of
+    the lists (all valid: the layout is ragged); for a k-way intersection
+    list 0's words and, of the other lists, only the sectors a membership
+    needs (`many_sector_bytes`). Written once: the kept words and the
+    result's offsets."""
+    nbytes = 4 * (offs.numel() + words.numel() + off.numel())
+    if name == "intersect_many":
+        nbytes += 4 * int(offs[1] - offs[0]) + many_sector_bytes(X, offs)
+    else:
+        nbytes += 4 * X.numel()
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def measure_merge(name, args, reps=5, timed=True):
+    """setop_merge wrapper `name` against its plain version on (X, offs),
+    exactly (mismatching offsets and kept words), the call made twice back
+    to back (each must equal plain); with `timed` the kernel (events),
+    device (trace), plain and library times and the bound, in ms."""
+    import torch
+
+    from dgraph_tpu_torch.ops import setop_merge
+
+    X, offs = args
+    fn, plain = getattr(setop_merge, name), setop_merge.PLAIN[name]
+    got, again = merge_words(name, fn(X, offs)), merge_words(name, fn(X, offs))
+    want = merge_words(name, plain(X, offs))
+    torch.cuda.synchronize()
+    bad = 0
+    for side in (got, again):
+        for g, w in zip(side, want):
+            bad += int((g != w).sum()) if g.shape == w.shape else max(g.numel(), w.numel(), 1)
+    errs = [(_to_i64(g) - _to_i64(w)).abs() for g, w in zip(got, want) if g.shape == w.shape]
+    r = {"mismatches": bad, "kept": int(want[1].numel()),
+         "max_abs_err": float(max([float(e.max()) for e in errs if e.numel()] + [0.0]))}
+    if not timed:
+        return r
+    lib = library_merge(name, X, offs)
+    bound, bound_by = merge_bound_ms(name, X, offs, *want)
+    k = offs.numel() - 1
+    r.update({
+        "library_agrees": bool(torch.equal(lib(), _to_i64(want[1]))),
+        "ms": _events_ms(lambda: fn(X, offs), reps),
+        "device_ms": kernel_device_ms(lambda: fn(X, offs),
+                                      name=setop_merge.kernel_names(name, k)),
+        "device_trace": dict(LAST_TRACE),
+        "plain_ms": _events_ms(lambda: plain(X, offs), max(3, reps // 2)),
+        "library_ms": _events_ms(lib, reps),
+        "bound_ms": bound,
+        "bound_by": bound_by,
+    })
+    return r
+
+
+# the kinds at which phase 3c checks the long pair of 2^20 (the others
+# at every shorter case), for the script's time limit
+LONG_KINDS = ("random", "dups")
+
+
+def merge_cases(seed=0):
+    """(wrapper, label, list lengths) of phase 3c's exact checks: pairs
+    short, across tiles, lopsided and many and tiny for the union; k = 2,
+    3 and 256 for the k-way merge and intersection; one long pair of 2^20
+    for each (checked at LONG_KINDS)."""
+    rng = np.random.default_rng(seed)
+    pairs = [("a pair of 3 and 5", [3, 5]), ("40 pairs of <= 70", rng.integers(0, 71, 80)),
+             ("pairs across tiles", [3000, 5000, 2500, 10]),
+             ("lopsided pairs", [1, 70000, 70000, 1]),
+             ("4,000 pairs of <= 3", rng.integers(0, 4, 8000))]
+    lists = [("k = 2", [3000, 5000]), ("k = 3", [2000, 40000, 3000]),
+             ("k = 256", rng.integers(0, 101, 256))]
+    return ([("union_ragged",) + c for c in pairs]
+            + [(w,) + c for w in MERGE_WRAPPERS[1:] for c in lists]
+            + [(w, "a pair of 2^20", [1 << 20, 1 << 20]) for w in MERGE_WRAPPERS])
+
+
+# (wrapper, label, list lengths, kind) of phase 3c's timed shapes:
+# `plain_op_input`'s and the served reads' ((e) over two segments: 2
+# sub-jobs of about 1,000 against 99,000; over one segment: a chain of
+# about 2,000 and 198,000; (c): about 2,000 hot uids within 200,000)
+MERGE_TIMED = [
+    ("union_ragged", "10,000 pairs of 64 and 1,024", [64, 1024] * 10000, "random"),
+    ("union_ragged", "(e): 2 pairs of 1,000 and 99,000", [1000, 99000] * 2, "random"),
+    ("union_ragged", "a pair of 2^20", [1 << 20, 1 << 20], "random"),
+    ("merge_sorted", "3 x 10^5", [100000] * 3, "random"),
+    ("merge_sorted", "(e) on one segment: 2,000 and 198,000", [2000, 198000], "random"),
+    ("merge_sorted", "256 lists of 1,000", [1000] * 256, "random"),
+    ("intersect_many", "3 x 10^5", [100000] * 3, "random"),
+    ("intersect_many", "(c): 2,000 within 200,000", [2000, 200000], "all"),
+]
+
+
+def merge_from_threads(device="cuda", threads=2, calls=5):
+    """Each wrapper on a many-tile case from `threads` threads on as many
+    streams at once, `calls` times each: every result equal to plain.
+    Returns the mismatching calls."""
+    import threading
+
+    import torch
+
+    from dgraph_tpu_torch.ops import setop_merge
+
+    cases = {"union_ragged": ([64, 1024] * 2000, "random"),
+             "merge_sorted": ([100000] * 3, "random"),
+             "intersect_many": ([100000] * 2, "all")}
+    bad = []
+    for name, (lens, kind) in cases.items():
+        args = [torch.from_numpy(x).to(device) for x in merge_lists_case(lens, 3, kind)]
+        want = merge_words(name, setop_merge.PLAIN[name](*args))
+        torch.cuda.synchronize()
+        streams = [torch.cuda.Stream() for _ in range(threads)]
+
+        def work(i):
+            with torch.cuda.stream(streams[i]):
+                for _ in range(calls):
+                    got = merge_words(name, getattr(setop_merge, name)(*args))
+                    streams[i].synchronize()
+                    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                        bad.append((name, i))
+
+        ts = [threading.Thread(target=work, args=(i,)) for i in range(threads)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+    return bad
+
+
+def merge_grid(device="cuda", log=print):
+    """Phase 3c: setop_merge's three wrappers against their plain versions,
+    exactly, each call twice back to back: every kind of MERGE_KINDS at
+    every case of merge_cases, then timed at MERGE_TIMED, then from 2
+    threads on 2 streams."""
+    import torch
+
+    def tensors(case):
+        return [torch.from_numpy(x).to(device) for x in case]
+
+    n = 0
+    for name, label, lens in merge_cases():
+        for kind in LONG_KINDS if max(lens) >= 1 << 20 else MERGE_KINDS:
+            args = tensors(merge_lists_case(lens, seed=len(lens), kind=kind))
+            if measure_merge(name, args, timed=False)["mismatches"]:
+                raise AssertionError(f"{name} {kind} {label}: != plain")
+            n += 1
+            del args
+    log(f"edge lists: union_ragged, merge_sorted and intersect_many equal to plain over "
+        f"{len(MERGE_KINDS)} kinds {MERGE_KINDS} x {sorted({c[1] for c in merge_cases()})} "
+        f"(the pair of 2^20 at {LONG_KINDS}): {n} cases, each call twice back to back")
+    out = {}
+    for name, label, lens, kind in MERGE_TIMED:
+        args = tensors(merge_lists_case(lens, seed=len(lens), kind=kind))
+        r = measure_merge(name, args)
+        if r["mismatches"] or not r["library_agrees"]:
+            raise AssertionError(f"{name} {label}: {r}")
+        out[(name, label)] = r
+        log(f"{name} {label} (N={args[0].numel()}, lists {args[1].numel() - 1}, kept "
+            f"{r['kept']}): equal, twice; " + _fmt(r))
+        del args
+    bad = merge_from_threads(device)
+    if bad:
+        raise AssertionError(f"setop_merge from 2 threads on 2 streams != plain: {bad}")
+    log("from 2 threads on 2 streams, 5 calls each, every wrapper: equal to plain")
+    return out
+
+
+def merge_shapes_equal(by_shape):
+    """setop_merge against its plain version, exactly, on the inputs of
+    every shape a path gave each wrapper (a `_Capture` of MERGE_WRAPPERS).
+    Returns {(wrapper, N, lists): mismatches}."""
+    return {key: measure_merge(key[0], args, timed=False)["mismatches"]
+            for key, args in sorted(by_shape.items(), key=str)}
+
+
+def merge_served(by_shape, log=print):
+    """setop_merge against its plain version, exactly, at every shape the
+    served reads gave each wrapper, and timed on the heaviest of each.
+    Returns {wrapper: measurement}."""
+    bad = {k: n for k, n in merge_shapes_equal(by_shape).items() if n}
+    if bad:
+        raise AssertionError(f"served setop_merge != plain at {bad}")
+    heaviest = {}
+    for key, args in by_shape.items():
+        if key[0] not in heaviest or args[0].numel() > heaviest[key[0]][1][0].numel():
+            heaviest[key[0]] = (key, args)
+    res = {}
+    for name, (key, args) in sorted(heaviest.items()):
+        res[name] = measure_merge(name, args)
+        res[name]["shape"] = key[1:]
+        if not res[name]["library_agrees"]:
+            raise AssertionError(f"served {key}: library != plain")
+        log(f"{name} at (N, lists) {key[1:]} (served): " + _fmt(res[name]))
+    return res
+
+
+def expected_recurse(g):
+    """What (f) must answer, by a BFS over the edge arrays from 0x1: at
+    each depth, each expanded node's children, sorted, each once (a node
+    is expanded once, where it is first reached)."""
+    f = g["f"]
+    src = np.concatenate([np.full(len(g["l1"]), 1, np.uint64), np.repeat(g["l1"], f),
+                          np.repeat(g["l2"], f)])
+    dst = np.concatenate([g["l1"], g["l2"], g["l3"]])
+    order = np.lexsort((dst, src))
+    src, dst = src[order], dst[order]
+    out, frontier, seen = {}, [1], {1}
+    for depth in range(3):
+        level, nxt = {}, []
+        for u in frontier:
+            at = np.searchsorted(src, u), np.searchsorted(src, u, side="right")
+            kids = np.unique(dst[at[0]:at[1]]).tolist()
+            if kids:
+                level[u] = kids
+            nxt += [k for k in kids if k not in seen]
+            seen.update(kids)
+        if level:
+            out[depth] = level
+        frontier = sorted(set(nxt))
+    return out
+
+
+def extract_recurse(data):
+    """{depth: {uid: child uids}} of a @recurse answer."""
+    out = {}
+
+    def walk(objs, depth):
+        for o in objs:
+            kids = o.get("child", [])
+            if kids:
+                out.setdefault(depth, {})[int(o["uid"], 16)] = [int(k["uid"], 16) for k in kids]
+                walk(kids, depth + 1)
+
+    walk(data["q"], 0)
+    return out
+
+
+def merge_reads(server, g, names, device="cuda", warm=(), log=print):
+    """Reads `names` ((c) of QUERIES, (e) and (f) of MERGE_QUERIES) on
+    `server` over graph `g`, on the forced device path, each with
+    setop_merge's counts zeroed just before and read just after, then on
+    the host path: the answers must be equal, and equal to numpy ((c):
+    `expected(g, "b")`; (e): every row whole, each uid once; (f):
+    `expected_recurse`). The reads in `warm` then run once more on each
+    path, the host path first, so that both of those times are of a warm
+    read (in the first round the device path reads cold, and warms the
+    host path's read). Returns each read's launches by wrapper, its ms on
+    both paths in each round, the inputs of each shape the wrappers took
+    (cloned) and the plain-torch programs' calls."""
+    from dgraph_tpu_torch.ops import setop_merge
+
+    on_card = device != "cpu"
+    counts = setop_merge.LAUNCHES if on_card else setop_merge.PLAIN_CALLS
+
+    def timed(q, dev):
+        with forced_device(dev):
+            t0 = time.perf_counter()
+            got = _run_query(server, q)
+            return got, (time.perf_counter() - t0) * 1e3
+
+    out = {"launches": {}, "calls": {}, "ms": {}}
+    with _Capture(setop_merge, MERGE_WRAPPERS, key=merge_shape_key) as cap, \
+            _PlainOps() as pops:
+        for name in names:
+            q = MERGE_QUERIES.get(name) or QUERIES[name]
+            for w in MERGE_WRAPPERS:
+                counts[w] = 0
+            got, dev_ms = timed(q, True)
+            out["launches"][name] = {w: counts[w] for w in MERGE_WRAPPERS}
+            host, host_ms = timed(q, False)
+            ms = out["ms"][name] = {"first": {"device": dev_ms, "host": host_ms}}
+            if got != host:
+                raise AssertionError(f"({name}): device path != host path")
+            data = json.loads(got)
+            if name == "f":
+                ok = extract_recurse(data) == expected_recurse(g)
+            else:
+                ok = extract(name, data) == expected(g, "b", hot=g["pool"] if name == "e" else None)
+            if not ok:
+                raise AssertionError(f"({name}): != numpy reference")
+            line = (f"({name}) first round, the device path first: device {dev_ms:.3f} ms, "
+                    f"host {host_ms:.3f} ms")
+            if name in warm:
+                host_ms = timed(q, False)[1]
+                again, dev_ms = timed(q, True)
+                if again != got:
+                    raise AssertionError(f"({name}): a second device read != the first")
+                ms["warm"] = {"device": dev_ms, "host": host_ms}
+                line += f"; warm, the host path first: device {dev_ms:.3f} ms, host {host_ms:.3f} ms"
+            out["calls"][name] = sum(counts.values())  # both device rounds
+            log(line + f"; device == host == numpy; setop_merge launches "
+                f"{out['launches'][name]}")
+    out["captured"] = cap.by_shape
+    out["plain_ops"] = pops.calls
+    return out
+
+
+def bulk_graph_server(device, texts):
+    """A Server on `device` holding the graph of RDF `texts` (nquad_chunks),
+    bulk-loaded through the parallel loader."""
+    import tempfile
+
+    from dgraph_tpu_torch.api.server import Server
+    from dgraph_tpu_torch.loaders.bulk2 import ParallelBulkLoader
+
+    srv = Server(device=device)
+    srv.slow_query_ms = float("inf")
+    srv.alter("child: [uid] .\ntag: string @index(exact) .")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bulk_") as d:
+        ParallelBulkLoader(srv, workdir=d).load_texts(texts)
+    return srv
+
+
+def merge_phase(server, g, device="cuda", log=print):
+    """Phase 4c: (e) and (f) on phase 4's server (two hi-32 segments), then
+    (c), (e) and (f) on a one-segment server of the same graph
+    (`make_graph(low=True)`, bulk-loaded), each read as in `merge_reads`,
+    each timed warm too but (f) on the one-segment server (two more
+    reads of every edge: about 15 s on the H100, for the time limit).
+    K4, K5 and K6 must each launch, equal their plain versions on every
+    input the reads gave them, and no read may call setops' plain union,
+    merge_sorted or intersect_many. Returns the launches by path, the
+    measurements at the heaviest served inputs and the plain calls."""
+    from dgraph_tpu_torch.query import dispatch
+
+    paths = {"4c": merge_reads(server, g, ("e", "f"), device, warm="ef", log=log)}
+    g_low = make_graph(g["f"], len(g["pool"]), roots=len(g["l1"]), low=True)
+    t0 = time.perf_counter()
+    low = bulk_graph_server(device, list(nquad_chunks(g_low)))
+    log(f"one-segment graph bulk-loaded in {time.perf_counter() - t0:.3f}s")
+    dispatch.DISPATCHER.device_cache.clear()  # no operand of another store
+    paths["4c one segment"] = merge_reads(low, g_low, ("c", "e", "f"), device, warm="ce",
+                                          log=log)
+    dispatch.DISPATCHER.device_cache.clear()
+    del low
+    launches = {p: {w: sum(r[w] for r in got["launches"].values()) for w in MERGE_WRAPPERS}
+                for p, got in paths.items()}
+    total = {w: sum(c[w] for c in launches.values()) for w in MERGE_WRAPPERS}
+    if min(total.values()) < 1:
+        raise AssertionError(f"a setop_merge kernel did not launch on the reads: {launches}")
+    captured = {}
+    for got in paths.values():
+        for key, args in got.pop("captured").items():
+            captured.setdefault(key, args)
+    # setops' plain programs: none on the card; on the CPU, only as the
+    # wrappers' plain versions (one call each, in every device round)
+    plain = {p: got["plain_ops"] for p, got in paths.items()}
+    if any(sum(plain[p].get(n, 0) for n in PLAIN_OPS[:3])
+           != (0 if device != "cpu" else sum(paths[p]["calls"].values())) for p in plain):
+        raise AssertionError(f"the reads called setops' plain programs: {plain}")
+    res = merge_served(captured, log) if device != "cpu" else {}
+    return {"launches": launches, "served": res, "plain_ops": plain,
+            "ms": {p: got["ms"] for p, got in paths.items()}}
 
 
 def k1_route_against_setop_rows(A, LA, B, LB, reps=7):
@@ -3762,9 +4266,10 @@ CLUSTER_SCHEMA = "child: [uid] .\ntag: string @index(exact) ."
 CLUSTER_VECTORS = 500
 # The graph of phase 11 in the whole script: a tenth of phase 4's (10
 # level-1 nodes over a pool of 20,000). Every remote read is one RPC per
-# key, so the full graph's (c) alone takes about 200,000 RPCs a read, and
-# with its load more than the time limit leaves after phases 1-10;
-# `--cluster-only` runs phase 11 on the full graph (PERF.md section 4).
+# key, so the full graph's (c)
+# alone takes about 200,000 RPCs a read, and with its load more than the
+# time limit leaves after phases 1-10; `--cluster-only` runs phase 11 on
+# the full graph (PERF.md section 4).
 CLUSTER_CUT = {"roots": 10, "pool": 20_000}
 CLUSTER_TAG_CHUNK = 2_000  # indexed values a commit (see serve_cluster)
 CLUSTER_MODULES = ("dgraph_tpu_torch.worker.alpha_process",
@@ -5098,28 +5603,17 @@ def mesh_main_path(device, g, answers, texts, small_V, Q, min_b=MESH_MIN_B, log=
     `similar_to` on a fresh `emb_small` index with `SHARD_VECTORS=1`,
     equal to the exact top-10. Returns the counts and the captured KV1
     inputs."""
-    import tempfile
-
     import torch
 
     from dgraph_tpu_torch.api.server import Server
-    from dgraph_tpu_torch.loaders.bulk2 import ParallelBulkLoader
     from dgraph_tpu_torch.ops import member_sweep, vector_topk
     from dgraph_tpu_torch.parallel import mesh as pmesh
     from dgraph_tpu_torch.query import dispatch
 
-    def graph_server(texts):
-        srv = Server(device=device)
-        srv.slow_query_ms = float("inf")
-        srv.alter("child: [uid] .\ntag: string @index(exact) .")
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as d:
-            ParallelBulkLoader(srv, workdir=d).load_texts(texts)
-        return srv
-
     t0 = time.perf_counter()
     g_low = make_graph(g["f"], len(g["pool"]), roots=len(g["l1"]), low=True)
-    servers = {"phase 4's graph": (graph_server(texts), g),
-               "one segment": (graph_server(list(nquad_chunks(g_low))), g_low)}
+    servers = {"phase 4's graph": (bulk_graph_server(device, texts), g),
+               "one segment": (bulk_graph_server(device, list(nquad_chunks(g_low))), g_low)}
     out = {"load_s": time.perf_counter() - t0}
     log(f"two graph servers bulk-loaded in {out['load_s']:.3f}s")
     routed = []
@@ -5203,17 +5697,8 @@ def mesh_data(device="cuda", fanout=100, pool=200_000, log=print):
     """`--mesh-only`'s graph and phase 4's answers to it: the graph
     through the native bulk loader, (a)-(d) answered on the forced device
     path, each held to numpy."""
-    import tempfile
-
-    from dgraph_tpu_torch.api.server import Server
-    from dgraph_tpu_torch.loaders.bulk2 import ParallelBulkLoader
-
     g = make_graph(fanout, pool)
-    srv = Server(device=device)
-    srv.slow_query_ms = float("inf")
-    srv.alter("child: [uid] .\ntag: string @index(exact) .")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as d:
-        ParallelBulkLoader(srv, workdir=d).load_texts(list(nquad_chunks(g)))
+    srv = bulk_graph_server(device, list(nquad_chunks(g)))
     with forced_device():
         answers = {name: _run_query(srv, q) for name, q in QUERIES.items()}
     for name, got in answers.items():
@@ -5260,6 +5745,45 @@ def cli_and_mesh_phase(g, answers, V, Q, exact, small_V, card, t_start):
     return out
 
 
+def grid_phase_3c(card, log=print):
+    """Phase 3c (`merge_grid`) with its heading and its seconds."""
+    t0 = time.perf_counter()
+    print("[3c] setop_merge (K4 union, K5 k-way merge, K6 k-way intersection) vs plain "
+          "(exact), times in ms at " + card, flush=True)
+    merge_grid(log=log)
+    print(f"    [3c] {time.perf_counter() - t0:.3f}s", flush=True)
+
+
+def reads_phase_4c(card, server, g, profile=(), log=print):
+    """Phase 4c (`merge_phase`) on `server` over graph `g`, with its
+    heading and its summary; then, for each read of MERGE_QUERIES named in
+    `profile`, where one run's time goes on the device path and on the
+    host path on `server` (`profile_query`: one run under cProfile, one
+    traced). Returns merge_phase's result."""
+    t0 = time.perf_counter()
+    print("[4c] the reads that reach K4-K6: (e) and (f) on phase 4's server, (c), (e) and "
+          "(f) on a one-segment server of the same graph; at " + card, flush=True)
+    m4 = merge_phase(server, g, log=log)
+    print(f"    [4c] setop_merge launches by path {m4['launches']}; plain-torch calls "
+          f"{m4['plain_ops']}; {time.perf_counter() - t0:.3f}s", flush=True)
+    for name in profile:
+        for dev in (True, False):
+            log(f"({name}) on the {'device' if dev else 'host'} path, profiled:")
+            with forced_device(dev):
+                profile_query(server, MERGE_QUERIES[name], log=log, top=20, reps=1, traces=1)
+    return m4
+
+
+def merge_only(card, profile=()):
+    """`--merge-only`: phases 3c and 4c alone, 4c on phase 4's graph
+    bulk-loaded through the native loader (not through mutations), with
+    the reads of MERGE_QUERIES named in `profile` profiled."""
+    log = lambda m: print("    " + m, flush=True)  # noqa: E731
+    grid_phase_3c(card, log)
+    g = make_graph()
+    reads_phase_4c(card, bulk_graph_server("cuda", list(nquad_chunks(g))), g, profile, log)
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5275,10 +5799,14 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", default="", metavar="QUERIES",
-                    help="also profile these queries on the device path, e.g. bcefghi")
+                    help="also profile these queries on the device path, e.g. bcefghi "
+                         "(with --merge-only: e and f of phase 4c, on both paths)")
     ap.add_argument("--crossover", action="store_true",
                     help="after the build, time KV1's two regimes against its switch, "
                          "and stop")
+    ap.add_argument("--merge-only", action="store_true",
+                    help="after the build, run phases 3c and 4c alone (phase 4's graph "
+                         "bulk-loaded), and stop")
     ap.add_argument("--ops-only", action="store_true",
                     help="after the build, run phase 10 alone (on rows made anew), and stop")
     ap.add_argument("--graphql-only", action="store_true",
@@ -5295,7 +5823,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; nothing was run", file=sys.stderr)
         return 2
-    from dgraph_tpu_torch.ops import cuda_build, setop_rows
+    from dgraph_tpu_torch.ops import cuda_build, setop_merge, setop_rows
     from dgraph_tpu_torch.x import config
 
     t_start = time.perf_counter()
@@ -5311,6 +5839,9 @@ def main(argv=None) -> int:
         print("[crossover] KV1 device times in ms at " + card + "; 'rule' is the built "
               "kernel", flush=True)
         topk_crossover()
+        return 0
+    if opts.merge_only:
+        merge_only(card, tuple(c for c in opts.profile if c in MERGE_QUERIES))
         return 0
     if opts.ops_only:
         V, Q = make_corpus()
@@ -5340,8 +5871,11 @@ def main(argv=None) -> int:
     print("[3b] setop_rows (K2 + K3) vs plain (exact), times in ms at " + card, flush=True)
     setop_grid(log=lambda m: print("    " + m, flush=True))
     print(f"    [3b] {time.perf_counter() - t0:.3f}s", flush=True)
+    grid_phase_3c(card, log=lambda m: print("    " + m, flush=True))
 
     print("[4] serving the fan-out graph on the card", flush=True)
+    for w in MERGE_WRAPPERS:
+        setop_merge.LAUNCHES[w] = 0
     s = serve("cuda", log=lambda m: print("    " + m, flush=True),
               profile=tuple(c for c in opts.profile if c in QUERIES), keep=True)
     for name, r in s["queries"].items():
@@ -5375,6 +5909,12 @@ def main(argv=None) -> int:
     print(f"    (b) warm: {up} bytes up ({m_b} sub-rows), {down} back in reads of "
           f"{s['copies']['b']['fetch_ms']} ms (host clock: the offsets, waiting on the kernel, "
           "then the kept words); (d)'s difference in one launch", flush=True)
+    # setop_merge's launches (K4-K6) by wrapper in phase 4's counted run
+    merge_paths = {"4": dict(setop_merge.LAUNCHES)}
+    m4 = reads_phase_4c(card, s["server"], s["graph"],
+                        log=lambda m: print("    " + m, flush=True))
+    merge_paths.update(m4["launches"])
+    merge_main = m4["served"]
     # setop_rows launches of each later path, its count zeroed just before,
     # and the shapes at which it was held against its plain version
     setop_paths, setop_checked = {"4": s["setop_launches"]}, {}
@@ -5384,24 +5924,31 @@ def main(argv=None) -> int:
 
     def setop_counted(path, fn, *a, **kw):
         setop_rows.LAUNCHES = launches = 0
+        for w in MERGE_WRAPPERS:
+            setop_merge.LAUNCHES[w] = 0
         try:
-            with _Capture(setop_rows, SETOP_WRAPPERS) as scap, _PlainOps() as pops:
+            with _Capture(setop_rows, SETOP_WRAPPERS) as scap, _PlainOps() as pops, \
+                    _Capture(setop_merge, MERGE_WRAPPERS, key=merge_shape_key) as mcap:
                 got = fn(*a, **kw)
         finally:
             launches = setop_rows.LAUNCHES
             setop_paths[path] = setop_paths.get(path, 0) + launches
+            merge_paths[path] = {w: merge_paths.get(path, {}).get(w, 0) + setop_merge.LAUNCHES[w]
+                                 for w in MERGE_WRAPPERS}
         plain_paths[path] = pops.calls
         for name, got_in in pops.largest.items():
             if got_in[0] > plain_largest.get(name, (-1,))[0]:
                 plain_largest[name] = got_in
         by_shape = scap.by_shape
         bad = {k: n for k, n in setop_shapes_equal(by_shape).items() if n}
+        bad.update({k: n for k, n in merge_shapes_equal(mcap.by_shape).items() if n})
         if bad:
-            raise AssertionError(f"({path}) setop_rows != plain at {bad}")
+            raise AssertionError(f"({path}) setop_rows or setop_merge != plain at {bad}")
         setop_checked[path] = setop_checked.get(path, 0) + len(by_shape)
         print(f"    ({path}) {fn.__name__}: setop_rows launches {launches}, equal to plain "
-              f"at every shape it took: {len(by_shape)} shapes", flush=True)
-        del scap, by_shape
+              f"at every shape it took: {len(by_shape)} shapes; setop_merge launches "
+              f"{merge_paths[path]}, equal to plain at {len(mcap.by_shape)} shapes", flush=True)
+        del scap, by_shape, mcap
         return got
     k1 = setop_counted("4 K1 read", k1_read, "cuda",
                        log=lambda m: print("    " + m, flush=True))
@@ -5526,8 +6073,14 @@ def main(argv=None) -> int:
                        t_start)
     del small_V, all_Q
 
-    print("[plain ops] K4-K7, K11 (plain torch in the port): calls by path "
-          f"{plain_paths}; ms (events) and byte bound at " + card, flush=True)
+    plain_paths.update(m4["plain_ops"])
+    print("[plain ops] K4-K7, K11 (plain torch in the port; K4-K6 only as setop_merge's "
+          f"plain versions): calls by path {plain_paths}; ms (events) and byte bound at "
+          + card, flush=True)
+    called = {p: {n: c[n] for n in PLAIN_OPS[:3] if c.get(n)} for p, c in plain_paths.items()}
+    if any(called.values()):
+        raise AssertionError(f"a path called setops' plain union, merge_sorted or "
+                             f"intersect_many: {called}")
     for name in PLAIN_OPS:
         size, got_in = plain_largest.get(name, (None, None))
         where = (f"its largest served input, {size} words or uids" if got_in is not None
@@ -5593,6 +6146,16 @@ def main(argv=None) -> int:
         **{key: heavy[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                        "library_ms")},
     })
+    for name in MERGE_WRAPPERS:
+        r = merge_main[name]
+        by_path = {p: c[name] for p, c in merge_paths.items()}
+        rows.append({
+            "name": f"setop_merge.{name}", "route": "cuda",
+            "source": "dgraph_tpu_torch/csrc/setop_merge.cu", "replaces": MERGE_REFS[name],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            **{key: r[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms")},
+        })
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

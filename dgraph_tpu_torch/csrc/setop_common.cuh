@@ -1,0 +1,142 @@
+// Device code that setop_rows.cu and setop_merge.cu share: the tile's
+// shape, cp.async staging, the warp's 32-probe search, the lockstep
+// membership search, the scan of a tile's 64 chunks of keep bits, and the
+// acquire and release of the decoupled look-back's status words.
+//
+// A tile is 2048 positions: 8 warps of 32 lanes, 8 positions a lane, so
+// 64 chunks of 32 positions, one 128-byte line a warp's load. A status
+// word is 64 bits, the tile's state in bits 62-63 (0: nothing published
+// yet), its counts in the rest, as each kernel packs them.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kPer = 8;                 // chunks of 32 positions a warp takes
+constexpr int kChunks = kWarps * kPer;  // 64 a tile
+constexpr int kTile = 32 * kChunks;     // 2048 positions
+constexpr uint32_t kFull = 0xFFFFFFFFu;
+constexpr int kWindowMax = 8 * 1024;    // words of a staged window (32 KB)
+constexpr int kMinCtas = 4;             // CTAs an SM holds at once (64 registers a thread)
+// states of a tile's status word: its aggregate alone, or its inclusive prefix
+constexpr unsigned long long kAgg = 1, kPrefix = 3;
+
+__device__ __forceinline__ unsigned long long load_acquire(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+// n words from global src to shared dst by every thread of the CTA, with
+// cp.async; each thread waits for its own copies (the caller syncs).
+__device__ __forceinline__ void stage_words(uint32_t* dst, const uint32_t* src, int n) {
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst + i);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(src + i) : "memory");
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// The first i in [0, n) with key(i) > q (upper) or key(i) >= q (lower),
+// n if none, key(i) of type T ascending in i; the whole warp searches, 32
+// probes a round, so about log32(n) dependent loads. Every lane must call
+// it with the same arguments.
+template <typename T, typename Key>
+__device__ int warp_search(Key key, int n, T q, bool upper) {
+  const int lane = threadIdx.x & 31;
+  int lo = 0, hi = n;  // the answer lies in [lo, hi]
+  while (lo < hi) {
+    const int step = (hi - lo + 31) / 32;
+    const int at = lo + lane * step;
+    bool p = true;  // probes past hi count as past the answer
+    if (at < hi) {
+      const T v = key(at);
+      p = upper ? v > q : v >= q;
+    }
+    const unsigned ball = __ballot_sync(kFull, p);
+    if (ball == 0) {  // every probe before the answer
+      lo += 31 * step + 1;
+      continue;
+    }
+    const int f = __ffs(ball) - 1;
+    if (f == 0) break;  // key(lo) already past: lo
+    const int nhi = min(lo + f * step, hi);
+    lo += (f - 1) * step + 1;
+    hi = nhi;
+  }
+  return lo;
+}
+
+// Is q[k] in b[at[k], at[k] + n[k])? For the kPer words of a lane at
+// once (n[k] 0: not searched), b sorted ascending as uint32, in shared
+// memory or in global memory through the read-only path; a branchless
+// binary search for the last element <= q[k]. The searches run in
+// lockstep, so that their kPer chains of dependent loads overlap. Returns
+// bit k set where q[k] is found.
+template <bool kInGlobal>
+__device__ __forceinline__ unsigned member_all(const uint32_t* __restrict__ b,
+                                               const int (&at)[kPer], int (&n)[kPer],
+                                               const uint32_t (&q)[kPer]) {
+  int base[kPer];
+  unsigned empty = 0;  // words with nothing to search: searched at b[0], never hit
+  int steps = 0;       // ceil(log2(n)) halvings take n to 1
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    base[k] = n[k] > 0 ? at[k] : 0;
+    empty |= n[k] > 0 ? 0u : 1u << k;
+    n[k] = max(n[k], 1);
+    steps = max(steps, 32 - __clz(n[k] - 1));
+  }
+  for (int i = 0; i < steps; ++i) {
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {  // no branch: a word at n 1 keeps its place
+      const int half = n[k] >> 1;
+      const uint32_t x = kInGlobal ? __ldg(b + base[k] + half) : b[base[k] + half];
+      base[k] += x <= q[k] ? half : 0;
+      n[k] -= half;
+    }
+  }
+  unsigned hits = 0;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    if ((kInGlobal ? __ldg(b + base[k]) : b[base[k]]) == q[k]) hits |= 1u << k;
+  }
+  return hits & ~empty;
+}
+
+// Warp 0 alone: from the tile's keep bits (one word a chunk, in shared
+// memory), chunk_off[c] = the kept words before chunk c and
+// chunk_off[kChunks] = the tile's total, visible to the whole warp on
+// return; every lane returns the total.
+__device__ __forceinline__ int chunk_scan(const uint32_t* bits, int* chunk_off) {
+  const int lane = threadIdx.x & 31;
+  const int x0 = __popc(bits[lane]), x1 = __popc(bits[lane + 32]);
+  int i0 = x0, i1 = x1;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y0 = __shfl_up_sync(kFull, i0, d), y1 = __shfl_up_sync(kFull, i1, d);
+    if (lane >= d) {
+      i0 += y0;
+      i1 += y1;
+    }
+  }
+  const int half = __shfl_sync(kFull, i0, 31);
+  const int total = half + __shfl_sync(kFull, i1, 31);
+  chunk_off[lane] = i0 - x0;
+  chunk_off[lane + 32] = half + i1 - x1;
+  if (lane == 0) chunk_off[kChunks] = total;
+  __syncwarp();
+  return total;
+}
+
+}  // namespace

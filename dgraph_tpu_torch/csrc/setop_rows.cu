@@ -65,27 +65,18 @@
 //     call's stream, so concurrent calls share nothing.
 // No sort, cumsum or nonzero runs in it.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "setop_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kPer = 8;                  // chunks of 32 positions a warp takes
-constexpr int kChunks = kWarps * kPer;   // 64 a tile
-constexpr int kTile = 32 * kChunks;      // 2048 positions
-constexpr uint32_t kFull = 0xFFFFFFFFu;
 constexpr int kWholeMax = 48 * 1024;     // words of B staged whole (192 KB)
-constexpr int kWindowMax = 8 * 1024;     // words of a tile's window of B (32 KB)
 constexpr int kRowCap = 1024;            // rows of a tile staged in shared memory
-constexpr int kMinCtas = 4;              // CTAs an SM holds at once (64 registers a thread)
 constexpr int kMaxDevices = 64;
 
 enum { kIntersect = 0, kDifference = 1, kCompact = 2 };
 enum { kSmemWhole = 0, kSmemWindow = 1, kGlobal = 2, kNone = 3 };
-// states of a tile's status word (bits 62-63); 0: nothing published yet
-constexpr unsigned long long kAgg = 1, kAggSeg = 2, kPrefix = 3;
+// the third state of a status word: an aggregate over a row start
+constexpr unsigned long long kAggSeg = 2;
 constexpr unsigned long long kMask31 = 0x7FFFFFFFull;
 
 struct Args {
@@ -107,60 +98,8 @@ struct Args {
   int span, aligned;  // positions a tile; tiles hold whole padded rows (no look-back)
 };
 
-__device__ __forceinline__ unsigned long long load_acquire(const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_release(unsigned long long* p, unsigned long long v) {
-  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
-}
-
 __device__ __forceinline__ unsigned long long pack(unsigned long long state, int r, int g) {
   return (state << 62) | ((unsigned long long)(unsigned)r << 31) | (unsigned long long)(unsigned)g;
-}
-
-// n words from global src to shared dst by every thread of the CTA, with
-// cp.async; each thread waits for its own copies (the caller syncs).
-__device__ __forceinline__ void stage_words(uint32_t* dst, const uint32_t* src, int n) {
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const unsigned s = (unsigned)__cvta_generic_to_shared(dst + i);
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(src + i) : "memory");
-  }
-  asm volatile("cp.async.commit_group;" ::: "memory");
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
-}
-
-// The first i in [0, n) with x[i] > q (upper) or x[i] >= q (lower), n if
-// none, x sorted ascending in global memory; the whole warp searches, 32
-// probes a round, so about log32(n) dependent loads. Every lane must call
-// it with the same arguments.
-template <typename T>
-__device__ int warp_bound(const T* __restrict__ x, int n, T q, bool upper) {
-  const int lane = threadIdx.x & 31;
-  int lo = 0, hi = n;  // the answer lies in [lo, hi]
-  while (lo < hi) {
-    const int len = hi - lo;
-    const int step = (len + 31) / 32;
-    const int at = lo + lane * step;
-    bool p = true;  // probes past hi count as past the answer
-    if (at < hi) {
-      const T v = __ldg(x + at);
-      p = upper ? v > q : v >= q;
-    }
-    const unsigned ball = __ballot_sync(kFull, p);
-    if (ball == 0) {  // every probe before the answer
-      lo += 31 * step + 1;
-      continue;
-    }
-    const int f = __ffs(ball) - 1;
-    if (f == 0) break;  // x[lo] already past: lo
-    const int nhi = min(lo + f * step, hi);
-    lo += (f - 1) * step + 1;
-    hi = nhi;
-  }
-  return lo;
 }
 
 // The last i in [lo, hi] with off[i] <= p, given off[lo] <= p.
@@ -172,43 +111,6 @@ __device__ __forceinline__ int last_le(const int32_t* __restrict__ off, int lo, 
     n -= half;
   }
   return lo;
-}
-
-// Is q[k] in b[at[k], at[k] + n[k])? For the kPer words of a lane at
-// once (n[k] 0: not searched), b sorted ascending as uint32, in shared
-// memory or in global memory through the read-only path; a branchless
-// binary search for the last element <= q[k]. The searches run in
-// lockstep, so that their kPer chains of dependent loads overlap. Returns
-// bit k set where q[k] is found.
-template <bool kInGlobal>
-__device__ __forceinline__ unsigned member_all(const uint32_t* __restrict__ b,
-                                               const int (&at)[kPer], int (&n)[kPer],
-                                               const uint32_t (&q)[kPer]) {
-  int base[kPer];
-  unsigned empty = 0;  // words with nothing to search: searched at b[0], never hit
-  int steps = 0;       // ceil(log2(n)) halvings take n to 1
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    base[k] = n[k] > 0 ? at[k] : 0;
-    empty |= n[k] > 0 ? 0u : 1u << k;
-    n[k] = max(n[k], 1);
-    steps = max(steps, 32 - __clz(n[k] - 1));
-  }
-  for (int i = 0; i < steps; ++i) {
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {  // no branch: a word at n 1 keeps its place
-      const int half = n[k] >> 1;
-      const uint32_t x = kInGlobal ? __ldg(b + base[k] + half) : b[base[k] + half];
-      base[k] += x <= q[k] ? half : 0;
-      n[k] -= half;
-    }
-  }
-  unsigned hits = 0;
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    if ((kInGlobal ? __ldg(b + base[k]) : b[base[k]]) == q[k]) hits |= 1u << k;
-  }
-  return hits & ~empty;
 }
 
 // The range of B that row `row` searches: its start and length, clamped
@@ -244,6 +146,8 @@ __global__ void __launch_bounds__(kThreads, kMinCtas) setop_rows_single_pass(Arg
     return chunk_off[q >> 5] + __popc(bits[q >> 5] & ((1u << (q & 31)) - 1u));
   };
 
+  auto row_start = [&](int i) { return __ldg(a.off + i); };  // ragged rows
+
   if (a.whole) stage_words(sb, a.B, (int)a.nB);  // the loop's first sync publishes it
 
   for (;;) {
@@ -271,7 +175,7 @@ __global__ void __launch_bounds__(kThreads, kMinCtas) setop_rows_single_pass(Arg
     if (ragged) {
       if (warp < 4) {
         const int q = warp == 0 ? s : warp == 1 ? e - 1 : warp == 2 ? s : e;
-        const int i = warp_bound<int32_t>(a.off, a.m + 1, q, warp < 2);
+        const int i = warp_search(row_start, a.m + 1, q, warp < 2);
         if (lane == 0) {
           if (warp == 0) s_rs = i - 1;
           else if (warp == 1) s_re = i - 1;
@@ -318,7 +222,8 @@ __global__ void __launch_bounds__(kThreads, kMinCtas) setop_rows_single_pass(Arg
         } else {
           if (warp < 2) {
             const uint32_t q = __ldg(a.A + (warp == 0 ? s : ve - 1));
-            const int at = warp_bound<uint32_t>(a.B + bs, bl, q, warp == 1);
+            const int at = warp_search([&](int i) { return __ldg(a.B + bs + i); }, bl, q,
+                                        warp == 1);
             if (lane == 0) s_bound[warp] = at;
           }
           __syncthreads();
@@ -406,22 +311,7 @@ __global__ void __launch_bounds__(kThreads, kMinCtas) setop_rows_single_pass(Arg
 
     // places within the tile, then the look-back for the tile's prefix
     if (warp == 0) {
-      const int x0 = __popc(bits[lane]), x1 = __popc(bits[lane + 32]);
-      int i0 = x0, i1 = x1;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int y0 = __shfl_up_sync(kFull, i0, d), y1 = __shfl_up_sync(kFull, i1, d);
-        if (lane >= d) {
-          i0 += y0;
-          i1 += y1;
-        }
-      }
-      const int half = __shfl_sync(kFull, i0, 31);
-      chunk_off[lane] = i0 - x0;
-      chunk_off[lane + 32] = half + i1 - x1;
-      if (lane == 31) chunk_off[kChunks] = half + i1;
-      __syncwarp();
-      const int total = chunk_off[kChunks];
+      const int total = chunk_scan(bits, chunk_off);
       // the count since the last row start, for the padded places: reset
       // where the row of position e - 1 starts inside the tile
       const int last_start = ragged ? __ldg(a.off + re) : re * a.pa;

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into a shared
 library with a plain C interface, loaded with ctypes. Libraries land in
-`dgraph_tpu_torch/_build/` (git-ignored), named by a hash of the source, so
-an edited kernel rebuilds and an unchanged one loads at once. A build that
+`dgraph_tpu_torch/_build/` (git-ignored), named by a hash of the source and
+of the headers it may include (`csrc/*.cuh`), so an edited kernel rebuilds
+and an unchanged one loads at once. A build that
 fails raises: there is no fallback to the plain versions.
 
 Nothing here runs at import; the first launch of a kernel builds it.
@@ -23,7 +24,7 @@ from typing import Dict, Iterable
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-KERNELS = ("member_sweep", "vector_topk", "ivf_slab_scan", "setop_rows")
+KERNELS = ("member_sweep", "vector_topk", "ivf_slab_scan", "setop_rows", "setop_merge")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -49,8 +50,12 @@ def nvcc() -> str:
 
 
 def _so_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        tag = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    tag = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for src in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, src), "rb") as f:
+            tag.update(f.read())
+    tag.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{tag.hexdigest()[:16]}.so")
 
 

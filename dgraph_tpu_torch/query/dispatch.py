@@ -11,16 +11,21 @@ to this dispatcher, which:
      the range of the shared operand that holds its segment, all of them
      in one launch over the ragged buffer, b uploaded once;
   3. for pairs, runs intersect and difference sub-jobs in one ragged
-     launch with a range of B a pair, and buckets by padded (pow2) shapes
-     the union sub-jobs (ops/setops.py) and the intersect sub-jobs of
-     <= 128 that the member sweep takes (ops/member_sweep.py, then
-     setop_rows' compaction); intersect and difference run on the
-     hand-written kernel setop_rows (ops/setop_rows.py); operands go up in
-     one copy through pinned memory, and the results come back as their
-     offsets, then their kept words alone (a bucket: in one copy),
-  4. keeps tiny batches on the host (native C++ loops), where moving the
+     launch with a range of B a pair, union sub-jobs in one ragged launch
+     with a and b as adjacent lists, and buckets by padded (pow2) shapes
+     the intersect sub-jobs of <= 128 that the member sweep takes
+     (ops/member_sweep.py, then setop_rows' compaction); intersect and
+     difference run on the hand-written kernel setop_rows
+     (ops/setop_rows.py), union on setop_merge (ops/setop_merge.py);
+     operands go up in one copy through pinned memory, and the results
+     come back as their offsets, then their kept words alone (a bucket:
+     in one copy),
+  4. for a one-segment AND or OR chain, runs the k-way intersection or
+     merge of setop_merge over the k lists staged back to back, and reads
+     back the count, then the kept words,
+  5. keeps tiny batches on the host (native C++ loops), where moving the
      operands to the card costs more than the work,
-  5. row-shards a giant shared operand over the dispatcher's device mesh
+  6. row-shards a giant shared operand over the dispatcher's device mesh
      (parallel/mesh.py) when the mesh has more than one device.
 
 The dispatcher is bound to one torch device. `cuda` is the default; the
@@ -40,7 +45,7 @@ import torch
 from dgraph_tpu_torch.codec import uidpack
 from dgraph_tpu_torch.codec.uidpack import join_segments, split_segments
 from dgraph_tpu_torch.device import resolve_device
-from dgraph_tpu_torch.ops import member_sweep, packed_setops, setop_rows, setops
+from dgraph_tpu_torch.ops import member_sweep, packed_setops, setop_merge, setop_rows, setops
 from dgraph_tpu_torch.x import config
 
 # Below this much total work, host kernels win. Setting 0 means "always
@@ -299,16 +304,24 @@ def _offsets(lens) -> np.ndarray:
     return off
 
 
+def _read_back(out, head, rows: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A ragged result on its device, read back as its row offsets (int64,
+    rows + 1) and its words (uint32): `head` (the offsets first, then
+    any counters, returned as they are), then the kept words alone."""
+    head = _fetch([head])[0]
+    res_offs = head[: rows + 1].astype(np.int64)
+    total = int(res_offs[-1])
+    words = _fetch([out[:total]])[0] if total else np.zeros((0,), np.uint32)
+    return res_offs, words, head[rows + 1 :]
+
+
 def _run_ragged(op, A, offs, rid, B, ranges) -> Tuple[np.ndarray, np.ndarray]:
     """setop_rows over a ragged buffer on its device, read back as the
     result's row offsets (int64, m + 1) and its words (uint32): the
     offsets first, then the kept words alone."""
     out, head = getattr(setop_rows, f"{op}_ragged")(A, offs, rid, B, ranges)
-    head = _fetch([head])[0]
-    setop_rows.GLOBAL_TILES += int(head[-1])
-    res_offs = head[:-1].astype(np.int64)
-    total = int(res_offs[-1])
-    words = _fetch([out[:total]])[0] if total else np.zeros((0,), np.uint32)
+    res_offs, words, tail = _read_back(out, head, offs.numel() - 1)
+    setop_rows.GLOBAL_TILES += int(tail[-1])
     return res_offs, words
 
 
@@ -776,18 +789,14 @@ class SetOpDispatcher:
             return out
         hi = next(iter(his)) if his else 0
         arrs = [s.get(hi, np.zeros((0,), np.uint32)) for s in segs]
-        k = len(arrs)
-        pad = _pow2(max(len(a) for a in arrs))
-        M = np.full((k, pad), setops.UINT32_MAX, np.uint32)
-        L = np.zeros((k,), np.int64)
-        for i, a in enumerate(arrs):
-            M[i, : len(a)] = a
-            L[i] = len(a)
-        dev = self._dev()
-        fn = setops.intersect_many if op == "intersect" else setops.merge_sorted
-        out, cnt = fn(setops.to_device(M, dev), torch.from_numpy(L).to(dev))
-        out, cnt = _fetch([setop_rows.to_bits(out), cnt.to(torch.int32)])
-        return join_segments({hi: out[: int(cnt)]})
+        # the k lists back to back in one copy; the count comes back, then
+        # the kept words alone
+        X, offs = _stage(self._dev(), [
+            np.concatenate(arrs), _offsets(np.fromiter(map(len, arrs), np.int64, len(arrs))),
+        ])
+        fn = setop_merge.intersect_many if op == "intersect" else setop_merge.merge_sorted
+        _, words, _ = _read_back(*fn(X, offs), 1)
+        return join_segments({hi: words})
 
     def _run_chain_packed_intersect(self, parts: List) -> np.ndarray:
         """Intersect chain with packed operands: fold from the smallest
@@ -890,14 +899,14 @@ class SetOpDispatcher:
                 elif lb is not None and op == "union":
                     passthrough.append((pi, hi, lb))
 
-        # Union and the member sweep's intersect sub-jobs run a batched op
-        # a bucket of padded (pow2) shapes; every other intersect or
-        # difference sub-job runs in one ragged setop_rows launch.
+        # The member sweep's intersect sub-jobs run a bucket of padded
+        # (pow2) shapes at a time; every other sub-job runs in one ragged
+        # launch (setop_rows, or setop_merge's union).
         buckets: Dict[Tuple[int, int], List[int]] = {}
         ragged: List[int] = []
         for i, (_, _, a, b) in enumerate(sub):
             pa = _pow2(len(a))
-            if op == "union" or self._sweeps(op, pa):
+            if self._sweeps(op, pa):
                 buckets.setdefault((pa, _pow2(len(b))), []).append(i)
             else:
                 ragged.append(i)
@@ -906,10 +915,12 @@ class SetOpDispatcher:
         # device sub-job (segment present in both operands) or in
         # passthrough (present in exactly one) — never both.
         by_pair: List[Dict[int, np.ndarray]] = [dict() for _ in pairs]
-        runs = [(idxs, self._run_bucket(op, pa, pb, [sub[i] for i in idxs]))
+        runs = [(idxs, self._run_bucket(pa, pb, [sub[i] for i in idxs]))
                 for (pa, pb), idxs in buckets.items()]
         if ragged:
-            runs.append((ragged, self._run_pairs_ragged(op, [sub[i] for i in ragged])))
+            jobs = [sub[i] for i in ragged]
+            runs.append((ragged, self._run_union_ragged(jobs) if op == "union"
+                          else self._run_pairs_ragged(op, jobs)))
         for idxs, outs in runs:
             for (pi, hi, _, _), res in zip((sub[i] for i in idxs), outs):
                 by_pair[pi][hi] = res
@@ -922,11 +933,11 @@ class SetOpDispatcher:
         member-sweep kernel (the reference's Pallas branch)."""
         return _USE_PALLAS and op == "intersect" and pa <= _SWEEP_MAX_PA
 
-    def _run_bucket(self, op, pa, pb, jobs):
-        """One batched op over the (pair, hi, a, b) sub-jobs of a bucket:
-        the rows go up in one copy, are padded to (n, pa) and (n, pb) on
-        the device, and come back in one copy. Intersect runs on the
-        member sweep (K1) and its compaction; union on setops.union."""
+    def _run_bucket(self, pa, pb, jobs):
+        """The intersect of the (pair, hi, a, b) sub-jobs of a bucket on the
+        member sweep (K1) and its compaction: the rows go up in one copy,
+        are padded to (n, pa) and (n, pb) on the device, and come back in
+        one copy."""
         n = len(jobs)
         dev = self._dev()
         a_vals, a_lens, b_vals, b_lens = _stage(dev, [
@@ -936,15 +947,7 @@ class SetOpDispatcher:
             np.fromiter((len(j[3]) for j in jobs), np.int32, n),
         ])
         A, B = _pad_dev(a_vals, a_lens, pa), _pad_dev(b_vals, b_lens, pb)
-        if op == "union":
-            out, cnt = setops.union(
-                setop_rows.to_u32(A), a_lens.to(torch.int64),
-                setop_rows.to_u32(B), b_lens.to(torch.int64),
-            )
-            out, cnt = setop_rows.to_bits(out), cnt.to(torch.int32)
-        else:
-            out, cnt = member_sweep.intersect_batch(A, a_lens, B, b_lens)
-        out, cnt = _fetch([out, cnt])
+        out, cnt = _fetch(list(member_sweep.intersect_batch(A, a_lens, B, b_lens)))
         return [out[i, : cnt[i]].copy() for i in range(n)]
 
     def _run_pairs_ragged(self, op, jobs):
@@ -961,6 +964,19 @@ class SetOpDispatcher:
             np.arange(n, dtype=np.int32), np.concatenate([j[3] for j in jobs]), table.ravel(),
         ])
         res_offs, words = _run_ragged(op, A, offs, rid, B, ranges.view(-1, 2))
+        return [words[res_offs[i] : res_offs[i + 1]] for i in range(n)]
+
+    def _run_union_ragged(self, jobs):
+        """Union of the (pair, hi, a, b) sub-jobs in one setop_merge launch:
+        a_i and b_i as lists 2i and 2i + 1 of one buffer, which goes up in
+        one copy with its offsets; the result's offsets come back, then
+        its kept words alone."""
+        n = len(jobs)
+        lens = np.fromiter((len(x) for j in jobs for x in j[2:]), np.int64, 2 * n)
+        X, offs = _stage(self._dev(), [
+            np.concatenate([x for j in jobs for x in j[2:]]), _offsets(lens),
+        ])
+        res_offs, words, _ = _read_back(*setop_merge.union_ragged(X, offs), n)
         return [words[res_offs[i] : res_offs[i + 1]] for i in range(n)]
 
 

@@ -410,3 +410,33 @@ def test_reference_cases_on_both_packages(case, runner, tmp_path, request, monke
                         lambda self, device="cpu": init(self, device))
     monkeypatch.setattr(port.DISPATCHER, "device", torch.device("cpu"))
     run_both(runner, case, tmp_path, request)
+
+
+# the reference's test of K11, the executor's device top-k of a `first:`
+# ordering over a value variable (ROADMAP Queue 3 B)
+K11_CASES = cases("test_sort_paths", only=["test_device_topk_val_var_first"])
+
+
+@pytest.mark.parametrize("case", K11_CASES)
+def test_device_topk_on_both_packages(case, runner, tmp_path, request, monkeypatch):  # noqa: F811
+    """The reference's `test_device_topk_val_var_first` passes on both
+    packages with equal answers, the port's on the forced device path,
+    where `Executor._order_uids_topk` (K11, `REPAIRED`) takes its device
+    sort: 6,000 uids, above its 4,096 threshold."""
+    from dgraph_tpu_torch.query import subgraph
+
+    taken = []
+    real = subgraph.Executor._order_uids_topk
+
+    def order_uids_topk(self, *a):
+        got = real(self, *a)
+        taken.append(got is not None)
+        return got
+
+    monkeypatch.setattr(subgraph.Executor, "_order_uids_topk", order_uids_topk)
+    init = port.SetOpDispatcher.__init__
+    monkeypatch.setattr(port.SetOpDispatcher, "__init__",
+                        lambda self, device="cpu": init(self, device))
+    monkeypatch.setattr(port.DISPATCHER, "device", torch.device("cpu"))
+    run_both(runner, case, tmp_path, request)
+    assert taken and all(taken)

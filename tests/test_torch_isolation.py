@@ -55,6 +55,7 @@ PORTED = {
     "ops/cuda_build.py",
     "ops/ivf_scan.py",
     "ops/member_sweep.py",
+    "ops/setop_merge.py",
     "ops/setop_rows.py",
     "ops/setops.py",
     "ops/vector_topk.py",
