@@ -1724,12 +1724,10 @@ def measure_merge(name, args, reps=5, timed=True):
         return r
     lib = library_merge(name, X, offs)
     bound, bound_by = merge_bound_ms(name, X, offs, *want)
-    k = offs.numel() - 1
     r.update({
         "library_agrees": bool(torch.equal(lib(), _to_i64(want[1]))),
         "ms": _events_ms(lambda: fn(X, offs), reps),
-        "device_ms": kernel_device_ms(lambda: fn(X, offs),
-                                      name=setop_merge.kernel_names(name, k)),
+        "device_ms": kernel_device_ms(lambda: fn(X, offs), name=setop_merge.kernel_names(name)),
         "device_trace": dict(LAST_TRACE),
         "plain_ms": _events_ms(lambda: plain(X, offs), max(3, reps // 2)),
         "library_ms": _events_ms(lib, reps),
@@ -1746,18 +1744,28 @@ LONG_KINDS = ("random", "dups")
 
 def merge_cases(seed=0):
     """(wrapper, label, list lengths) of phase 3c's exact checks: pairs
-    short, across tiles, lopsided and many and tiny for the union; k = 2,
-    3 and 256 for the k-way merge and intersection; one long pair of 2^20
-    for each (checked at LONG_KINDS)."""
+    short, across tiles, lopsided and many and tiny for the union; k = 1,
+    2, 3 and 256 for the k-way merge and intersection, and k = 257 and
+    1,000 (9 and 10 rounds of the union) for the merge; for all three, a
+    tile edge at a job's first and last word (job 0 holds positions
+    0-2046, job 1 2047-4096, when the kind keeps the lengths); for the
+    union and the merge, empty lists between full ones (3,000 empty pairs
+    at one position: more jobs in a tile than its staged offsets hold);
+    one long pair of 2^20 for each (checked at LONG_KINDS)."""
     rng = np.random.default_rng(seed)
     pairs = [("a pair of 3 and 5", [3, 5]), ("40 pairs of <= 70", rng.integers(0, 71, 80)),
              ("pairs across tiles", [3000, 5000, 2500, 10]),
              ("lopsided pairs", [1, 70000, 70000, 1]),
              ("4,000 pairs of <= 3", rng.integers(0, 4, 8000))]
-    lists = [("k = 2", [3000, 5000]), ("k = 3", [2000, 40000, 3000]),
+    lists = [("k = 1", [5000]), ("k = 2", [3000, 5000]), ("k = 3", [2000, 40000, 3000]),
              ("k = 256", rng.integers(0, 101, 256))]
-    return ([("union_ragged",) + c for c in pairs]
-            + [(w,) + c for w in MERGE_WRAPPERS[1:] for c in lists]
+    rounds = [("k = 257", rng.integers(0, 101, 257)), ("k = 1,000", rng.integers(0, 60, 1000))]
+    edge = ("a tile edge at a job's first and last word", [1000, 1047, 1025, 1025, 10, 5])
+    empty = ("empty lists between full ones", [0, 0, 5, 0, 0, 7, 300, 0] + [0] * 6000
+             + [250, 280] + [0] * 6 + [200, 0, 0, 0])
+    return ([("union_ragged",) + c for c in pairs + [edge, empty]]
+            + [("merge_sorted",) + c for c in lists + rounds + [edge, empty]]
+            + [("intersect_many",) + c for c in lists + [edge]]
             + [(w, "a pair of 2^20", [1 << 20, 1 << 20]) for w in MERGE_WRAPPERS])
 
 
@@ -1771,6 +1779,7 @@ MERGE_TIMED = [
     ("union_ragged", "a pair of 2^20", [1 << 20, 1 << 20], "random"),
     ("merge_sorted", "3 x 10^5", [100000] * 3, "random"),
     ("merge_sorted", "(e) on one segment: 2,000 and 198,000", [2000, 198000], "random"),
+    ("merge_sorted", "64 lists of 1,000", [1000] * 64, "random"),
     ("merge_sorted", "256 lists of 1,000", [1000] * 256, "random"),
     ("intersect_many", "3 x 10^5", [100000] * 3, "random"),
     ("intersect_many", "(c): 2,000 within 200,000", [2000, 200000], "all"),
@@ -1842,7 +1851,8 @@ def merge_grid(device="cuda", log=print):
             raise AssertionError(f"{name} {label}: {r}")
         out[(name, label)] = r
         log(f"{name} {label} (N={args[0].numel()}, lists {args[1].numel() - 1}, kept "
-            f"{r['kept']}): equal, twice; " + _fmt(r))
+            f"{r['kept']}): equal, twice; " + _fmt(r)
+            + f"; bound / device {r['bound_ms'] / r['device_ms']:.4f}")
         del args
     bad = merge_from_threads(device)
     if bad:
@@ -6150,7 +6160,8 @@ def main(argv=None) -> int:
         r = merge_main[name]
         by_path = {p: c[name] for p, c in merge_paths.items()}
         rows.append({
-            "name": f"setop_merge.{name}", "route": "cuda",
+            "name": f"setop_merge.{name}", "kernel": next(iter(setop_merge.kernel_names(name))),
+            "route": "cuda",
             "source": "dgraph_tpu_torch/csrc/setop_merge.cu", "replaces": MERGE_REFS[name],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             **{key: r[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -1,5 +1,5 @@
 // Device code that setop_rows.cu and setop_merge.cu share: the tile's
-// shape, cp.async staging, the warp's 32-probe search, the lockstep
+// shape, cp.async staging, the warp's 32-probe searches, the lockstep
 // membership search, the scan of a tile's 64 chunks of keep bits, and the
 // acquire and release of the decoupled look-back's status words.
 //
@@ -47,34 +47,39 @@ __device__ __forceinline__ void stage_words(uint32_t* dst, const uint32_t* src, 
   asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
-// The first i in [0, n) with key(i) > q (upper) or key(i) >= q (lower),
-// n if none, key(i) of type T ascending in i; the whole warp searches, 32
-// probes a round, so about log32(n) dependent loads. Every lane must call
-// it with the same arguments.
-template <typename T, typename Key>
-__device__ int warp_search(Key key, int n, T q, bool upper) {
+// The first i in [lo, hi) with pred(i), hi if none; pred false, then
+// true, as i grows. The whole warp searches, 32 probes a round, so about
+// log32(hi - lo) dependent rounds of loads. Every lane must call it with
+// the same arguments.
+template <typename Pred>
+__device__ int warp_first(Pred pred, int lo, int hi) {
   const int lane = threadIdx.x & 31;
-  int lo = 0, hi = n;  // the answer lies in [lo, hi]
-  while (lo < hi) {
+  while (lo < hi) {  // the answer lies in [lo, hi]
     const int step = (hi - lo + 31) / 32;
     const int at = lo + lane * step;
-    bool p = true;  // probes past hi count as past the answer
-    if (at < hi) {
-      const T v = key(at);
-      p = upper ? v > q : v >= q;
-    }
-    const unsigned ball = __ballot_sync(kFull, p);
+    // probes past hi count as past the answer
+    const unsigned ball = __ballot_sync(kFull, at < hi ? pred(at) : true);
     if (ball == 0) {  // every probe before the answer
       lo += 31 * step + 1;
       continue;
     }
     const int f = __ffs(ball) - 1;
-    if (f == 0) break;  // key(lo) already past: lo
+    if (f == 0) break;  // pred(lo) already: lo
     const int nhi = min(lo + f * step, hi);
     lo += (f - 1) * step + 1;
     hi = nhi;
   }
   return lo;
+}
+
+// The first i in [0, n) with key(i) > q (upper) or key(i) >= q (lower),
+// n if none, key(i) of type T ascending in i, by warp_first.
+template <typename T, typename Key>
+__device__ int warp_search(Key key, int n, T q, bool upper) {
+  return warp_first([&](int i) {
+    const T v = key(i);
+    return upper ? v > q : v >= q;
+  }, 0, n);
 }
 
 // Is q[k] in b[at[k], at[k] + n[k])? For the kPer words of a lane at

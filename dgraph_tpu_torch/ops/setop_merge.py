@@ -18,9 +18,10 @@ offs[-1] = N), so validity is by index and UINT32_MAX stays a legal uid.
   out[out_off[i]:out_off[i + 1]] (out has N words; those past out_off[m]
   are not written).
 - `merge_sorted(X, offs)`: k lists; their union, each value once, by
-  ceil(log2 k) rounds of the pair union over the card's own output (at
-  least one round: a single list is deduplicated too), with no copy to
-  the host between rounds. Returns (out, head): head (2,) = (0, count).
+  ceil(log2 k) rounds of the pair union (at least one round: a single
+  list is deduplicated too), all in one cooperative launch over two
+  scratch buffers of the call (`merge_layout`), whatever k is. Returns
+  (out, head): head (2,) = (0, count).
 - `intersect_many(X, offs)`: k lists; the words of list 0 that every
   other list holds, in list 0's order, with its duplicates. Returns (out,
   head): head (2,) = (0, count).
@@ -40,7 +41,8 @@ import torch
 from dgraph_tpu_torch.ops import setops
 from dgraph_tpu_torch.ops.setop_rows import to_bits, to_u32
 
-UNION_KERNEL = "setop_union_pairs"  # the kernel union_ragged launches; merge_sorted, in rounds
+UNION_KERNEL = "setop_union_pairs"  # the kernel union_ragged launches
+MERGE_KERNEL = "setop_merge_rounds"  # merge_sorted's one launch, every round in it
 MANY_KERNEL = "setop_intersect_many"
 TILE = 2048  # positions a tile of the kernels takes (checked against the build)
 MAX_P = (1 << 31) - 1  # positions are int32 in the kernels
@@ -57,13 +59,21 @@ _lib = None
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a built setop_merge library."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.setop_union_launch, lib.setop_intersect_many_launch):
+    for fn in (lib.setop_union_launch, lib.setop_merge_launch, lib.setop_intersect_many_launch):
         fn.restype = i32
         fn.argtypes = [ptr, ptr, i32, i32, ptr, i32, ptr]
     lib.setop_merge_tile.restype = i32
     lib.setop_merge_tile.argtypes = []
+    lib.setop_merge_layout.restype = None
+    lib.setop_merge_layout.argtypes = [i32, i32, ptr]
     if lib.setop_merge_tile() != TILE:
         raise RuntimeError(f"setop_merge tile {lib.setop_merge_tile()} != {TILE}")
+    got = (ctypes.c_longlong * 4)()
+    for k, cap in ((1, 0), (2, 5000), (3, 4096), (256, 256000), (1000, 30001)):
+        lib.setop_merge_layout(k, cap, got)
+        want = merge_layout(k, cap)
+        if list(got) != [want[key] for key in ("words", "zeroed", "out", "head")]:
+            raise RuntimeError(f"setop_merge layout at k={k}, cap={cap}: {list(got)} != {want}")
     return lib
 
 
@@ -81,12 +91,30 @@ def rounds(k: int) -> int:
     return max(1, (k - 1).bit_length())
 
 
-def kernel_names(name: str, k: int = 2) -> dict:
-    """The kernels one call of wrapper `name` launches, by name, with
-    their launches (merge_sorted of k lists: one a round)."""
-    if name == "intersect_many":
-        return {MANY_KERNEL: 1}
-    return {UNION_KERNEL: rounds(k) if name == "merge_sorted" else 1}
+def kernel_names(name: str) -> dict:
+    """The kernel one call of wrapper `name` launches, by name, with its
+    launches: one (merge_sorted runs every round inside its one launch)."""
+    return {{"union_ragged": UNION_KERNEL, "merge_sorted": MERGE_KERNEL,
+             "intersect_many": MANY_KERNEL}[name]: 1}
+
+
+def merge_layout(k: int, cap: int) -> dict:
+    """Where merge_sorted's launch puts each part of its buffer, in int32
+    words (`setop_merge_launch` lays it out the same way; `bind` checks):
+    each round's status words (2 a tile of cap), the grid barrier's count
+    and a pad word, then the offsets of even rounds and of odd rounds
+    (ceil(k / 2) + 1 each), which the launch zeroes, then the words of
+    even rounds and of odd rounds (cap each, the second only with 2
+    rounds or more). Returns {"words": the buffer's size, "zeroed": the
+    words zeroed, "out": where the answer's words start, "head": where
+    its (0, count) lies}: the last round's, odd or even."""
+    tiles, n_rounds, jobs = -(-cap // TILE), rounds(k), (k + 1) // 2
+    off = [2 * tiles * n_rounds + 2]
+    off.append(off[0] + jobs + 1)
+    zeroed = off[1] + jobs + 1
+    last = (n_rounds - 1) % 2
+    return {"words": zeroed + min(n_rounds, 2) * cap, "zeroed": zeroed,
+            "out": zeroed + last * cap, "head": off[last]}
 
 
 # ---------------------------------------------------------------------------
@@ -175,22 +203,6 @@ def _check(name, X, offs, pairs=False):
         raise ValueError(f"{name}: X and offs must be contiguous")
 
 
-def _union_round(X, offs, n, cap):
-    """One launch of the pair union over n lists of X (offs on the card,
-    at most cap words); returns (out, out_off) of ceil(n / 2) rows, views
-    of the call's own buffer."""
-    tiles = -(-cap // TILE)
-    jobs = (n + 1) // 2
-    buf = torch.empty((2 * tiles + jobs + 2 + cap,), dtype=torch.int32, device=X.device)
-    stream = torch.cuda.current_stream(X.device).cuda_stream
-    err = _kernel().setop_union_launch(X.data_ptr(), offs.data_ptr(), n, cap, buf.data_ptr(),
-                                       X.device.index, stream)
-    if err:
-        raise RuntimeError(f"setop_union_pairs launch failed: cudaError {err}")
-    at = 2 * tiles
-    return buf[at + jobs + 2 :], buf[at : at + jobs + 1]
-
-
 def union_ragged(X, offs):
     """Row i of the result: the union of lists 2i and 2i + 1 of X, each
     value once; (out, head) as in the module doc."""
@@ -199,7 +211,16 @@ def union_ragged(X, offs):
         PLAIN_CALLS["union_ragged"] += 1
         return union_ragged_plain(X, offs)
     LAUNCHES["union_ragged"] += 1
-    return _union_round(X, offs, offs.numel() - 1, X.numel())
+    n, cap = offs.numel() - 1, X.numel()
+    tiles, jobs = -(-cap // TILE), n // 2
+    buf = torch.empty((2 * tiles + jobs + 2 + cap,), dtype=torch.int32, device=X.device)
+    stream = torch.cuda.current_stream(X.device).cuda_stream
+    err = _kernel().setop_union_launch(X.data_ptr(), offs.data_ptr(), n, cap, buf.data_ptr(),
+                                       X.device.index, stream)
+    if err:
+        raise RuntimeError(f"{UNION_KERNEL} launch failed: cudaError {err}")
+    at = 2 * tiles
+    return buf[at + jobs + 2 :], buf[at : at + jobs + 1]
 
 
 def merge_sorted(X, offs):
@@ -210,11 +231,15 @@ def merge_sorted(X, offs):
         PLAIN_CALLS["merge_sorted"] += 1
         return merge_sorted_plain(X, offs)
     LAUNCHES["merge_sorted"] += 1
-    n, cap = offs.numel() - 1, X.numel()
-    for _ in range(rounds(n)):
-        X, offs = _union_round(X, offs, n, cap)
-        n = (n + 1) // 2
-    return X, offs
+    k, cap = offs.numel() - 1, X.numel()
+    at = merge_layout(k, cap)
+    buf = torch.empty((at["words"],), dtype=torch.int32, device=X.device)
+    stream = torch.cuda.current_stream(X.device).cuda_stream
+    err = _kernel().setop_merge_launch(X.data_ptr(), offs.data_ptr(), k, cap, buf.data_ptr(),
+                                       X.device.index, stream)
+    if err:
+        raise RuntimeError(f"{MERGE_KERNEL} launch failed: cudaError {err}")
+    return buf[at["out"] : at["out"] + cap], buf[at["head"] : at["head"] + 2]
 
 
 def intersect_many(X, offs):

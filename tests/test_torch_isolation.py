@@ -130,7 +130,8 @@ def _banned_imports(path):
 
 
 @pytest.mark.parametrize(
-    "rel", _port_files() + ["../chip_smoke.py", "../member_sweep_crossover.py"],
+    "rel", _port_files() + ["../chip_smoke.py", "../member_sweep_crossover.py",
+                            "../setop_merge_probe.py"],
     ids=lambda r: r,
 )
 def test_no_jax_or_reference_imports(rel):

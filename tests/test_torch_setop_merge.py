@@ -2,8 +2,8 @@
 
 `dgraph_tpu_torch/ops/setop_merge.py` holds the hand-written CUDA kernels'
 wrappers (`union_ragged`: the union of list pairs; `merge_sorted`: the
-k-way union, in rounds of the pair union; `intersect_many`: the k-way
-intersection) over lists back to back in one buffer, and beside them their
+k-way union, every round of the pair union in one cooperative launch;
+`intersect_many`: the k-way intersection) over lists back to back in one buffer, and beside them their
 plain PyTorch versions, which CPU tensors take. Here the plain versions
 run against the reference's `dgraph_tpu.ops.setops.union` (vmapped over
 the pairs), `merge_sorted` and `intersect_many` on jax-CPU, on the same
@@ -159,8 +159,67 @@ def test_union_needs_pairs():
 
 
 def test_rounds_of_the_k_way_merge():
+    """The rounds of a k-way merge all run in one launch of its own kernel."""
     assert [setop_merge.rounds(k) for k in (1, 2, 3, 4, 5, 256, 257)] == [1, 1, 2, 2, 3, 8, 9]
-    assert setop_merge.kernel_names("merge_sorted", 256) == {setop_merge.UNION_KERNEL: 8}
+    assert setop_merge.kernel_names("merge_sorted") == {setop_merge.MERGE_KERNEL: 1}
+    assert setop_merge.kernel_names("union_ragged") == {setop_merge.UNION_KERNEL: 1}
+
+
+@pytest.mark.parametrize("k,cap", [(1, 0), (1, 5000), (2, 4096), (3, 4097), (4, 100), (5, 7),
+                                   (256, 256000), (257, 1), (1000, 30088)])
+def test_merge_layout(k, cap):
+    """merge_sorted's buffer: each round's status words (2 a tile of cap),
+    the barrier's count and a pad word, the offsets of even and of odd
+    rounds, zeroed; then the words of even and odd rounds; the answer in
+    the last round's, even for an odd count of rounds, odd for an even."""
+    at = setop_merge.merge_layout(k, cap)
+    n_rounds, jobs = setop_merge.rounds(k), (k + 1) // 2
+    tiles = -(-cap // setop_merge.TILE)
+    off0 = 2 * tiles * n_rounds + 2
+    assert off0 % 2 == 0  # the status words stay 8-byte aligned, the offsets after them
+    assert at["zeroed"] == off0 + 2 * (jobs + 1)
+    assert at["words"] == at["zeroed"] + cap * (2 if n_rounds > 1 else 1)
+    if n_rounds % 2:  # rounds 0, 2, ..: the first buffers
+        assert (at["out"], at["head"]) == (at["zeroed"], off0)
+    else:
+        assert (at["out"], at["head"]) == (at["zeroed"] + cap, off0 + jobs + 1)
+    assert at["out"] + cap <= at["words"] and at["head"] + 2 <= at["zeroed"]
+
+
+def _numpy_answer(name, X, offs):
+    """What a wrapper must answer, by numpy: (offsets, kept words)."""
+    lists = _lists(X, offs)
+    if name == "union_ragged":
+        rows = [np.union1d(a, b) for a, b in zip(lists[0::2], lists[1::2])]
+    elif name == "merge_sorted":
+        rows = [np.unique(np.concatenate(lists))]
+    else:
+        keep = np.ones(len(lists[0]), bool)
+        for other in lists[1:]:
+            keep &= np.isin(lists[0], other)
+        rows = [lists[0][keep]]
+    off = np.zeros(len(rows) + 1, np.int64)
+    np.cumsum([len(r) for r in rows], out=off[1:])
+    return off, np.concatenate(rows).astype(np.uint32) if rows else np.zeros(0, np.uint32)
+
+
+@pytest.mark.parametrize(
+    "case,kind",
+    [(c, kind) for c in chip_smoke.merge_cases()
+     for kind in (chip_smoke.LONG_KINDS if max(c[2]) >= 1 << 20 else chip_smoke.MERGE_KINDS)],
+    ids=lambda v: v if isinstance(v, str) else f"{v[0]}-{v[1]}",
+)
+def test_plain_matches_numpy_at_merge_cases(case, kind):
+    """The plain versions, which phase 3c and the card tests hold the
+    kernels to, answer as numpy at every case of merge_cases (the pair of
+    2^20 at LONG_KINDS, as phase 3c checks it): tile edges inside a job,
+    empty lists between full ones, k of 1 to 10 rounds."""
+    name, _, lens = case
+    X, offs = chip_smoke.merge_lists_case(lens, seed=len(lens), kind=kind)
+    off, words = chip_smoke.merge_words(name, setop_merge.PLAIN[name](*_t([X, offs])))
+    want_off, want_words = _numpy_answer(name, X, offs)
+    np.testing.assert_array_equal(off.numpy(), want_off)
+    np.testing.assert_array_equal(words.numpy().view(np.uint32), want_words)
 
 
 # ---------------------------------------------------------------------------
@@ -324,6 +383,23 @@ def test_many_sector_bytes(lists, want):
     assert chip_smoke.many_sector_bytes(*_t([X, offs])) == want
 
 
+def test_probe_copy_of_the_kernel():
+    """setop_merge_probe.py stamps each phase of a union tile: every edit
+    finds its place in the kernel's source, once."""
+    import os
+
+    import setop_merge_probe
+    from dgraph_tpu_torch.ops import cuda_build
+
+    with open(os.path.join(cuda_build.CSRC, "setop_merge.cu")) as f:
+        src = f.read()
+    probed = setop_merge_probe.probe_source(src)
+    assert [probed.count(f"PROBE({n})") for n in range(3, 8)] == [1] * 5
+    assert "extern \"C\" int probe_read" in probed
+    with pytest.raises(ValueError):
+        setop_merge_probe.probe_source(src.replace("sm.first, sm.sums);", "sm.first);"))
+
+
 def test_plain_calls_apart_from_launches():
     args = _t(chip_smoke.merge_lists_case([5, 6, 7, 8], seed=2))
     launches = dict(setop_merge.LAUNCHES)
@@ -356,6 +432,28 @@ def test_kernel_matches_plain_on_card(card, case, kind):
     r = chip_smoke.measure_merge(name, args, timed=False)
     assert setop_merge.LAUNCHES[name] == launches + 2
     assert r["mismatches"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lens", [[1000] * 256, list(np.random.default_rng(5).integers(0, 3000, 256))],
+                         ids=["256-of-1000", "256-ragged"])
+def test_k_way_merge_all_twice_back_to_back(card, lens):
+    """Kind `all` at k = 256 (each list holds list 0 or its neighbour, so
+    every round rewrites both scratch buffers with words equal to ones an
+    SM read two rounds before): K5 twice back to back, between two pair
+    unions over the same words, each equal to plain; one launch a call."""
+    args = _t(chip_smoke.merge_lists_case(lens, seed=256, kind="all"), card)
+    want = chip_smoke.merge_words("merge_sorted", setop_merge.merge_sorted_plain(*args))
+    pairs = _t(chip_smoke.merge_lists_case(lens, seed=257, kind="all"), card)
+    launches = setop_merge.LAUNCHES["merge_sorted"]
+    got = []
+    for _ in range(2):
+        setop_merge.union_ragged(*pairs)
+        got.append(chip_smoke.merge_words("merge_sorted", setop_merge.merge_sorted(*args)))
+    torch.cuda.synchronize()
+    assert setop_merge.LAUNCHES["merge_sorted"] == launches + 2
+    for off, words in got:
+        assert torch.equal(off, want[0]) and torch.equal(words, want[1])
 
 
 @pytest.mark.cuda
