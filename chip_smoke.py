@@ -21,9 +21,11 @@ Phases, each of which fails the run when it fails:
      and the k-way intersection (K6), every kind of MERGE_KINDS (random,
      all, none, UINT32_MAX, across 2^31, empty a or b, one uid,
      duplicates inside a list) at pairs short, across tiles, lopsided and
-     tiny, k = 2, 3 and 256, and a pair of 2^20, each call twice back to
-     back; timed at `plain_op_input`'s shapes and the served reads' (e),
-     (c); then from 2 threads on 2 streams;
+     tiny, k = 2, 3 and 256, K6's windows of list 1 too wide to stage
+     (8,193, 262,144 and 262,145 words, list 0 below the first sample,
+     2,000 within 2^20), and a pair of 2^20, each call twice back to
+     back; timed at `plain_op_input`'s shapes, the served reads' (e),
+     (c), and 2,000 within 2^20; then from 2 threads on 2 streams;
   4. the main path: an embedded `Server(device="cuda")` loads a 3-level
      fan-out graph (1 -> 100 -> 10k -> 1M edges, the level-3 pool split
      across the 2^32 uid segment boundary, a 1%-hot `tag` on every level-3
@@ -1578,7 +1580,7 @@ MERGE_QUERIES = {
 }
 
 
-def merge_lists_case(lens, seed, kind="random"):
+def merge_lists_case(lens, seed, kind="random", window=None, below=False):
     """Sorted lists for setop_merge, made with numpy from `seed`, back to
     back: (X, offs) int32 numpy, uids as their bits, list i at
     X[offs[i]:offs[i + 1]], of about lens[i] uids. Half of each list comes
@@ -1587,7 +1589,15 @@ def merge_lists_case(lens, seed, kind="random"):
     values, odd lists even), max (every list ends with UINT32_MAX), sign
     (within 4096 of 2^31), la0 (the even lists empty: every a, and list
     0), lb0 (the odd lists empty), one (one uid a list, from 4 values),
-    dups (values from a narrow range, repeats kept)."""
+    dups (values from a narrow range, repeats kept).
+
+    `window` W, for the k-way intersection: list 0 is cut so that its
+    window in list 1 (the words between its first and last word) is list
+    1's last W words (all of list 1 when it is shorter): list 0 keeps its
+    words between the window's first word and list 1's last, and takes
+    both; exactly W where list 1's words are distinct. With `below`, list
+    0 is instead words from the gap just below the window's first word
+    (each absent from list 1) and list 1's last word."""
     rng = np.random.default_rng(seed)
     lens = np.array(lens, np.int64)
     if kind == "la0":
@@ -1612,10 +1622,28 @@ def merge_lists_case(lens, seed, kind="random"):
         if kind == "max" and x.size:
             x[-1] = U32
         lists.append(x)
+    if window and len(lists) > 1 and lists[0].size and lists[1].size:
+        lists[0] = _cut_to_window(lists[0], lists[1], window, below, rng)
     offs = np.zeros(len(lists) + 1, np.int64)
     np.cumsum([x.size for x in lists], out=offs[1:])
     X = np.concatenate(lists) if lists else np.zeros(0, np.uint64)
     return np.ascontiguousarray(X.astype(np.uint32)).view(np.int32), offs.astype(np.int32)
+
+
+def _cut_to_window(a, b, window, below, rng):
+    """List a cut so that its window in b is b's last `window` words (see
+    merge_lists_case): a's words inside it and its two ends, or with
+    `below` words from the gap before its first word and b's last."""
+    first = b[max(b.size - window, 0)]
+    if below:
+        gap_lo = int(b[b < first].max()) + 1 if b[0] < first else 0
+        inner = np.unique(rng.integers(gap_lo, int(first), size=a.size, dtype=np.uint64)
+                          ) if first > gap_lo else np.zeros(0, np.uint64)
+    else:
+        inner = np.concatenate([[first], a[(a > first) & (a < b[-1])]])
+        if first == b[-1]:
+            return inner.astype(np.uint64)
+    return np.concatenate([inner, [b[-1]]]).astype(np.uint64)
 
 
 def merge_shape_key(args):
@@ -1737,21 +1765,27 @@ def measure_merge(name, args, reps=5, timed=True):
     return r
 
 
-# the kinds at which phase 3c checks the long pair of 2^20 (the others
-# at every shorter case), for the script's time limit
+# the kinds at which phase 3c checks a case with a list of 2^20 (the
+# others at every shorter case), for the script's time limit
 LONG_KINDS = ("random", "dups")
 
 
 def merge_cases(seed=0):
-    """(wrapper, label, list lengths) of phase 3c's exact checks: pairs
-    short, across tiles, lopsided and many and tiny for the union; k = 1,
-    2, 3 and 256 for the k-way merge and intersection, and k = 257 and
-    1,000 (9 and 10 rounds of the union) for the merge; for all three, a
-    tile edge at a job's first and last word (job 0 holds positions
-    0-2046, job 1 2047-4096, when the kind keeps the lengths); for the
-    union and the merge, empty lists between full ones (3,000 empty pairs
-    at one position: more jobs in a tile than its staged offsets hold);
-    one long pair of 2^20 for each (checked at LONG_KINDS)."""
+    """(wrapper, label, list lengths, merge_lists_case options) of phase
+    3c's exact checks: pairs short, across tiles, lopsided and many and
+    tiny for the union; k = 1, 2, 3 and 256 for the k-way merge and
+    intersection, and k = 257 and 1,000 (9 and 10 rounds of the union) for
+    the merge; for all three, a tile edge at a job's first and last word
+    (job 0 holds positions 0-2046, job 1 2047-4096, when the kind keeps the
+    lengths); for the union and the merge, empty lists between full ones
+    (3,000 empty pairs at one position: more jobs in a tile than its staged
+    offsets hold); for the intersection, list 0 short against a window of
+    list 1 too wide to stage (8,193 words: a sample of every 2nd word;
+    262,144 and 262,145: every 32nd and every 33rd, the last bracket cut
+    at the window's end), at list 1's end with list 2 after it, and one of
+    8,193 where every word of list 0 but its last lies below the sample's
+    first word, and 2,000 within 2^20 (checked at LONG_KINDS); one long
+    pair of 2^20 for each wrapper (checked at LONG_KINDS)."""
     rng = np.random.default_rng(seed)
     pairs = [("a pair of 3 and 5", [3, 5]), ("40 pairs of <= 70", rng.integers(0, 71, 80)),
              ("pairs across tiles", [3000, 5000, 2500, 10]),
@@ -1763,16 +1797,33 @@ def merge_cases(seed=0):
     edge = ("a tile edge at a job's first and last word", [1000, 1047, 1025, 1025, 10, 5])
     empty = ("empty lists between full ones", [0, 0, 5, 0, 0, 7, 300, 0] + [0] * 6000
              + [250, 280] + [0] * 6 + [200, 0, 0, 0])
-    return ([("union_ragged",) + c for c in pairs + [edge, empty]]
-            + [("merge_sorted",) + c for c in lists + rounds + [edge, empty]]
-            + [("intersect_many",) + c for c in lists + [edge]]
-            + [(w, "a pair of 2^20", [1 << 20, 1 << 20]) for w in MERGE_WRAPPERS])
+    wide = [(f"a window of {w:,} words", [2000, w + w // 8, 3000], {"window": w})
+            for w in (8193, 1 << 18, (1 << 18) + 1)]
+    wide += [("list 0 below the first sample", [2000, 9000, 3000], {"window": 8193, "below": True}),
+             ("2,000 within 2^20", [2000, 1 << 20], {})]
+    return ([("union_ragged",) + c + ({},) for c in pairs + [edge, empty]]
+            + [("merge_sorted",) + c + ({},) for c in lists + rounds + [edge, empty]]
+            + [("intersect_many",) + c + ({},) for c in lists + [edge]]
+            + [("intersect_many",) + c for c in wide]
+            + [(w, "a pair of 2^20", [1 << 20, 1 << 20], {}) for w in MERGE_WRAPPERS])
+
+
+def merge_case_kinds(case):
+    """The kinds at which a case of merge_cases is checked: LONG_KINDS for
+    a list of 2^20, else every kind of MERGE_KINDS."""
+    return LONG_KINDS if max(case[2]) >= 1 << 20 else MERGE_KINDS
+
+
+def merge_case_lists(case, kind):
+    """The (X, offs) of a case of merge_cases at `kind`."""
+    return merge_lists_case(case[2], seed=len(case[2]), kind=kind, **case[3])
 
 
 # (wrapper, label, list lengths, kind) of phase 3c's timed shapes:
 # `plain_op_input`'s and the served reads' ((e) over two segments: 2
 # sub-jobs of about 1,000 against 99,000; over one segment: a chain of
-# about 2,000 and 198,000; (c): about 2,000 hot uids within 200,000)
+# about 2,000 and 198,000; (c): about 2,000 hot uids within 200,000), and
+# a window of list 1 five times (c)'s
 MERGE_TIMED = [
     ("union_ragged", "10,000 pairs of 64 and 1,024", [64, 1024] * 10000, "random"),
     ("union_ragged", "(e): 2 pairs of 1,000 and 99,000", [1000, 99000] * 2, "random"),
@@ -1783,24 +1834,27 @@ MERGE_TIMED = [
     ("merge_sorted", "256 lists of 1,000", [1000] * 256, "random"),
     ("intersect_many", "3 x 10^5", [100000] * 3, "random"),
     ("intersect_many", "(c): 2,000 within 200,000", [2000, 200000], "all"),
+    ("intersect_many", "2,000 within 2^20", [2000, 1 << 20], "all"),
 ]
 
 
 def merge_from_threads(device="cuda", threads=2, calls=5):
     """Each wrapper on a many-tile case from `threads` threads on as many
-    streams at once, `calls` times each: every result equal to plain.
-    Returns the mismatching calls."""
+    streams at once, `calls` times each: every result equal to plain (the
+    intersection twice: every window staged, and 8 tiles each sampling a
+    window of about 250,000 words). Returns the mismatching calls."""
     import threading
 
     import torch
 
     from dgraph_tpu_torch.ops import setop_merge
 
-    cases = {"union_ragged": ([64, 1024] * 2000, "random"),
-             "merge_sorted": ([100000] * 3, "random"),
-             "intersect_many": ([100000] * 2, "all")}
+    cases = [("union_ragged", [64, 1024] * 2000, "random"),
+             ("merge_sorted", [100000] * 3, "random"),
+             ("intersect_many", [100000] * 2, "all"),
+             ("intersect_many", [16000, 1 << 21], "all")]
     bad = []
-    for name, (lens, kind) in cases.items():
+    for name, lens, kind in cases:
         args = [torch.from_numpy(x).to(device) for x in merge_lists_case(lens, 3, kind)]
         want = merge_words(name, setop_merge.PLAIN[name](*args))
         torch.cuda.synchronize()
@@ -1833,16 +1887,17 @@ def merge_grid(device="cuda", log=print):
         return [torch.from_numpy(x).to(device) for x in case]
 
     n = 0
-    for name, label, lens in merge_cases():
-        for kind in LONG_KINDS if max(lens) >= 1 << 20 else MERGE_KINDS:
-            args = tensors(merge_lists_case(lens, seed=len(lens), kind=kind))
+    for case in merge_cases():
+        name, label = case[:2]
+        for kind in merge_case_kinds(case):
+            args = tensors(merge_case_lists(case, kind))
             if measure_merge(name, args, timed=False)["mismatches"]:
                 raise AssertionError(f"{name} {kind} {label}: != plain")
             n += 1
             del args
     log(f"edge lists: union_ragged, merge_sorted and intersect_many equal to plain over "
         f"{len(MERGE_KINDS)} kinds {MERGE_KINDS} x {sorted({c[1] for c in merge_cases()})} "
-        f"(the pair of 2^20 at {LONG_KINDS}): {n} cases, each call twice back to back")
+        f"(lists of 2^20 at {LONG_KINDS}): {n} cases, each call twice back to back")
     out = {}
     for name, label, lens, kind in MERGE_TIMED:
         args = tensors(merge_lists_case(lens, seed=len(lens), kind=kind))

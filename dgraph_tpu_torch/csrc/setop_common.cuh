@@ -1,7 +1,9 @@
 // Device code that setop_rows.cu and setop_merge.cu share: the tile's
-// shape, cp.async staging, the warp's 32-probe searches, the lockstep
-// membership search, the scan of a tile's 64 chunks of keep bits, and the
-// acquire and release of the decoupled look-back's status words.
+// shape, cp.async staging (of a window, or of every s-th word of one), the
+// warp's 32-probe searches, the lockstep membership searches (over a
+// window, or over a staged sample of a window too wide to stage), the
+// scan of a tile's 64 chunks of keep bits, and the acquire and release of
+// the decoupled look-back's status words.
 //
 // A tile is 2048 positions: 8 warps of 32 lanes, 8 positions a lane, so
 // 64 chunks of 32 positions, one 128-byte line a warp's load. A status
@@ -36,12 +38,15 @@ __device__ __forceinline__ void store_release(unsigned long long* p, unsigned lo
   asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
 }
 
-// n words from global src to shared dst by every thread of the CTA, with
-// cp.async; each thread waits for its own copies (the caller syncs).
-__device__ __forceinline__ void stage_words(uint32_t* dst, const uint32_t* src, int n) {
+// n words from global memory to shared dst by every thread of the CTA,
+// with cp.async: dst[i] = src[i * stride], all loads in flight at once;
+// each thread waits for its own copies (the caller syncs).
+__device__ __forceinline__ void stage_words(uint32_t* dst, const uint32_t* src, int n,
+                                            int stride = 1) {
   for (int i = threadIdx.x; i < n; i += kThreads) {
     const unsigned s = (unsigned)__cvta_generic_to_shared(dst + i);
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(src + i) : "memory");
+    const uint32_t* from = src + (long long)i * stride;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(from) : "memory");
   }
   asm volatile("cp.async.commit_group;" ::: "memory");
   asm volatile("cp.async.wait_group 0;" ::: "memory");
@@ -117,6 +122,61 @@ __device__ __forceinline__ unsigned member_all(const uint32_t* __restrict__ b,
     if ((kInGlobal ? __ldg(b + base[k]) : b[base[k]]) == q[k]) hits |= 1u << k;
   }
   return hits & ~empty;
+}
+
+// Is q[k] in W[0, wn), a sorted window in global memory too wide to stage
+// (wn > kWindowMax)? S is its sample in shared memory, S[j] = W[j * s] for
+// j < ns = ceil(wn / s). For the kPer words of a lane at once (those
+// outside `live` not searched), in lockstep: the last S[j] <= q[k] in
+// shared memory (ceil(log2 ns) steps); a word below S[0] is absent, one
+// equal to S[j] found; else the last word <= q[k] in the bracket W[j * s,
+// min((j + 1) * s, wn)) in global memory (ceil(log2 s) steps: with s <=
+// 32, one or two 128-byte lines), a probe at wn or past it counting as
+// above q[k]. The bracket holds the last word <= q[k] of the whole window,
+// since W[(j + 1) * s] = S[j + 1] > q[k], so equal words across a bracket
+// edge are found too. Returns bit k set where q[k] is found.
+__device__ __forceinline__ unsigned member_sampled(const uint32_t* __restrict__ S, int ns,
+                                                   const uint32_t* __restrict__ W, int wn, int s,
+                                                   unsigned live, const uint32_t (&q)[kPer]) {
+  int base[kPer];
+  uint32_t val[kPer];  // the word at base[k]: S[base[k]], then W[base[k]]
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    base[k] = 0;
+    val[k] = S[0];
+  }
+  for (int n = ns; n > 1;) {  // the answer lies in [base, base + n)
+    const int half = n >> 1;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const uint32_t x = S[base[k] + half];
+      if (x <= q[k]) base[k] += half, val[k] = x;
+    }
+    n -= half;
+  }
+  unsigned hits = 0, open = 0;  // found at a sample; left to the bracket
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    hits |= val[k] == q[k] ? 1u << k : 0u;
+    open |= val[k] < q[k] ? 1u << k : 0u;
+    base[k] *= s;
+  }
+  hits &= live;
+  open &= live;
+  for (int n = s; n > 1;) {
+    const int half = n >> 1;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      if (((open >> k) & 1u) && half < wn - base[k]) {  // base[k] + half < wn
+        const uint32_t x = __ldg(W + base[k] + half);
+        if (x <= q[k]) base[k] += half, val[k] = x;
+      }
+    }
+    n -= half;
+  }
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) hits |= ((open >> k) & 1u) && val[k] == q[k] ? 1u << k : 0u;
+  return hits;
 }
 
 // Warp 0 alone: from the tile's keep bits (one word a chunk, in shared

@@ -33,11 +33,13 @@
 // by its value, so 0xFFFFFFFF is a legal uid and no padding is read.
 //
 // What bounds it. Bytes: every valid word read once, the kept words and
-// the offsets written once. A union word costs a merge-path search (about
-// log2 of its job's words in the tile, in shared memory, a thread) and a
-// compare; an intersect word log2 of a list's window a list. Below the
-// bytes, a tile's latency: the chain of dependent loads before its words
-// are staged, and its look-back.
+// the offsets written once; for the intersection, of lists 1 .. k - 1,
+// only the 32-byte sectors a membership of list 0's words needs. A union
+// word costs a merge-path search (about log2 of its job's words in the
+// tile, in shared memory, a thread) and a compare; an intersect word
+// about log2 of a list's window a list. Below the bytes, a tile's latency:
+// the chain of dependent loads before its words are staged or searched,
+// and its look-back.
 //
 // Design. Tiles of 2048 positions, each a CTA's at a time, and each
 // tile's place in the output from a decoupled look-back over its
@@ -46,8 +48,9 @@
 // shape, warp search, staging and scan it shares (setop_common.cuh). The status
 // words, the ticket and the offsets belong to the call: the launch zeroes
 // them on the call's stream. A status word carries its counts and
-// nothing else, so the union's look-back reads and writes them relaxed
-// (a release orders, so waits for, the CTA's earlier stores), 256
+// nothing else, and no tile reads another's kept words inside a launch,
+// so the look-back (one for all three kernels) reads and writes them
+// relaxed (a release orders, so waits for, the CTA's earlier stores), 256
 // predecessors a step, the whole CTA at once.
 //   - Union: a tile is the merged positions [d, e), e - d <= 2048 (the
 //     merged sequence of job j occupies [lo[2j], lo[2j + 2]), the
@@ -84,12 +87,24 @@
 //     SM may still hold lines of them from two rounds back), so every
 //     read of words and offsets in the union goes through L2 (__ldcg).
 //   - Intersect: a tile is 2048 words of list 0, one 128-byte line a
-//     warp's load. For each other list, the window between the tile's
-//     first and last word is staged in shared memory with cp.async when
-//     it fits (8K words), else searched in global memory; a lane's 8
-//     searches run in lockstep; the tile stops at the first list that
-//     leaves it no word. Ballots and a scan over 64 chunks place the
-//     kept words.
+//     warp's load, taken from a ticket counter. A list's window is the
+//     part of it between the tile's first and last word; its bounds
+//     depend on those two words alone, so the tile finds the windows of
+//     four lists at once (two warps a list, a 32-probe search each, about
+//     log32 of the list's length dependent loads), before it searches the
+//     first of them: at k <= 5, one chain of bound searches a tile. Then,
+//     list by list, the CTA stages in shared memory with cp.async, every
+//     load in flight at once, the window whole when it fits (8K words),
+//     else a sample of it: every s-th word, s = ceil(wn / 8K), so at most
+//     8K words. A lane's 8 words search in lockstep: in the staged window
+//     (member_all), or first in the sample (<= 13 steps in shared memory)
+//     and then only in the bracket of s words after the sample word found
+//     (ceil(log2 s) dependent loads in global memory, one or two lines for
+//     windows up to 256K words); a word below the sample's first is
+//     absent and reads nothing more. No binary search over a whole window
+//     runs in global memory. The tile stops at the first list that leaves
+//     it no word, and finds no more windows. Ballots and a scan over 64
+//     chunks place the kept words.
 // The host side caches the CTAs a card holds at once, per device and
 // kernel: a call is one memset and one launch. No sort, cumsum or nonzero
 // runs in it.
@@ -104,6 +119,8 @@ namespace {
 constexpr unsigned long long kCount = (1ull << 62) - 1;
 // list offsets a union tile stages: those of 2048 one-word jobs and more
 constexpr int kLoCap = 2 * kTile + 8;
+// lists whose windows an intersect tile finds in one round: two warps a list
+constexpr int kBatch = kWarps / 2;
 
 // The first i in [lo, hi) with key(i) > q, hi if none; one thread.
 template <typename Key>
@@ -117,8 +134,8 @@ __device__ __forceinline__ int upper_in(Key key, int lo, int hi, long long q) {
 }
 
 // Strong loads and stores at the card's scope with no ordering of other
-// memory: a union tile's status word carries its counts and nothing
-// else, so a look-back needs no acquire or release (the fences of a
+// memory: a tile's status word carries its counts and nothing else, so a
+// look-back needs no acquire or release (the fences of a
 // release wait for the previous tile's stores of kept words).
 __device__ __forceinline__ unsigned long long load_relaxed(const unsigned long long* p) {
   unsigned long long v;
@@ -136,45 +153,12 @@ __device__ __forceinline__ int load_relaxed_i32(const int32_t* p) {
   return v;
 }
 
-// The tile's place in the output: its aggregate published, then the
-// counts of its predecessors read 32 at a time (acquire) back to the
-// nearest inclusive prefix, its own prefix published (release). Warp 0
-// alone calls it; every lane returns the count before the tile.
-__device__ int look_back(unsigned long long* status, int t, int total) {
-  const int lane = threadIdx.x & 31;
-  if (t == 0) {
-    if (lane == 0) store_release(status, (kPrefix << 62) | (unsigned long long)total);
-    return 0;
-  }
-  if (lane == 0) store_release(status + t, (kAgg << 62) | (unsigned long long)total);
-  long long acc = 0;
-  int before = 0;
-  for (int j = t - 1;; j -= 32) {
-    unsigned long long w = kPrefix << 62;  // before tile 0: a prefix of 0
-    if (j - lane >= 0) {
-      while (((w = load_acquire(status + j - lane)) >> 62) == 0) {
-      }
-    }
-    const unsigned found = __ballot_sync(kFull, (w >> 62) == kPrefix);
-    const int stop = found ? __ffs(found) - 1 : 32;
-    long long mine = lane < stop ? (long long)(w & kCount) : 0;
-#pragma unroll
-    for (int d = 16; d >= 1; d >>= 1) mine += __shfl_xor_sync(kFull, mine, d);
-    acc += mine;
-    if (stop < 32) {
-      before = (int)((long long)(__shfl_sync(kFull, w, stop) & kCount) + acc);
-      break;
-    }
-  }
-  if (lane == 0) store_release(status + t, (kPrefix << 62) | (unsigned long long)(before + total));
-  return before;
-}
-
-// The same for a whole CTA, every thread calling it: 256 predecessors
-// read a step (relaxed), the nearest inclusive prefix among them found by
-// ballots, the counts after it summed by a block reduction. `first` and
-// `sums` are kWarps words of shared scratch. Returns the count before
-// the tile to every thread.
+// The tile's place in the output, every thread of the CTA calling it: its
+// aggregate published, then its predecessors' status words read 256 a
+// step (relaxed), the nearest inclusive prefix among them found by
+// ballots, the counts after it summed by a block reduction, its own
+// prefix published. `first` and `sums` are kWarps words of shared
+// scratch. Returns the count before the tile to every thread.
 __device__ int look_back_block(unsigned long long* status, int t, int total, int* first,
                                long long* sums) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -507,10 +491,12 @@ struct ManyArgs {
 };
 
 __global__ void __launch_bounds__(kThreads, kMinCtas) setop_intersect_many(ManyArgs a) {
-  extern __shared__ __align__(16) uint32_t sw[];  // a list's window
+  extern __shared__ __align__(16) uint32_t sw[];  // a list's window, or its sample
   __shared__ uint32_t bits[kChunks];              // keep bits of each chunk
   __shared__ int chunk_off[kChunks + 1];          // kept before each chunk; the tile's total
-  __shared__ int s_tile, s_bound[2], s_gex;
+  __shared__ int s_tile, s_bound[kBatch][2];      // a round's windows [lo, hi) in X
+  __shared__ int s_first[kWarps];                 // the look-back's scratch
+  __shared__ long long s_sums[kWarps];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int base0 = __ldg(a.lo);
   const int P = __ldg(a.lo + 1) - base0;  // the words of list 0
@@ -536,31 +522,45 @@ __global__ void __launch_bounds__(kThreads, kMinCtas) setop_intersect_many(ManyA
       alive |= p < e ? 1u << x : 0u;
     }
     const uint32_t first = __ldg(A + s), last = __ldg(A + e - 1);
-    for (int l = 1; l < a.k; ++l) {
-      if (!__syncthreads_or(alive != 0)) break;  // no word of the tile left
-      const int ls = __ldg(a.lo + l);
-      const int ln = max(__ldg(a.lo + l + 1) - ls, 0);
-      const uint32_t* L = a.X + ls;
-      // the window of list l between the tile's first and last word
-      if (warp < 2) {
-        const int at = warp_search([&](int i) { return __ldg(L + i); }, ln,
-                                   warp == 0 ? first : last, warp == 1);
-        if (lane == 0) s_bound[warp] = at;
+    bool left = true;  // a word of the tile still kept: the same for every thread
+    for (int l0 = 1; left && l0 < a.k; l0 += kBatch) {
+      const int nl = min(kBatch, a.k - l0);
+      // the windows of lists l0 .. l0 + nl - 1 between the tile's first and
+      // last word, all at once: warp 2i finds list l0 + i's lower bound,
+      // warp 2i + 1 its upper
+      if (warp < 2 * nl) {
+        const int l = l0 + (warp >> 1);
+        const int ls = __ldg(a.lo + l);
+        const int ln = max(__ldg(a.lo + l + 1) - ls, 0);
+        const int at = warp_search([&](int i) { return __ldg(a.X + ls + i); }, ln,
+                                   warp & 1 ? last : first, (warp & 1) != 0);
+        if (lane == 0) s_bound[warp >> 1][warp & 1] = ls + at;
       }
-      __syncthreads();
-      const int wlo = s_bound[0];
-      const int wn = max(s_bound[1] - wlo, 0);
-      const bool staged = wn <= kWindowMax;
-      if (staged) stage_words(sw, L + wlo, wn);
-      __syncthreads();
-      int at[kPer], n[kPer];
+      __syncthreads();  // the round's windows
+      for (int i = 0; i < nl; ++i) {
+        const int wlo = s_bound[i][0];
+        const int wn = max(s_bound[i][1] - wlo, 0);
+        const uint32_t* W = a.X + wlo;
+        // the window whole when it fits, else every stride-th word of it
+        const int stride = wn <= kWindowMax ? 1 : (wn + kWindowMax - 1) / kWindowMax;
+        const int ns = (wn + stride - 1) / stride;
+        stage_words(sw, W, ns, stride);
+        __syncthreads();  // the window or its sample staged
+        if (stride == 1) {
+          int at[kPer], n[kPer];
 #pragma unroll
-      for (int x = 0; x < kPer; ++x) {
-        at[x] = staged ? 0 : wlo;
-        n[x] = (alive >> x) & 1u ? wn : 0;
+          for (int x = 0; x < kPer; ++x) {
+            at[x] = 0;
+            n[x] = (alive >> x) & 1u ? wn : 0;
+          }
+          alive &= member_all<false>(sw, at, n, v);
+        } else {
+          alive &= member_sampled(sw, ns, W, wn, stride, alive, v);
+        }
+        // also: every search has read sw before the next list overwrites it
+        left = __syncthreads_or(alive != 0);
+        if (!left) break;
       }
-      alive &= staged ? member_all<false>(sw, at, n, v) : member_all<true>(L, at, n, v);
-      __syncthreads();  // before the next list's window overwrites this one
     }
 
     // keep bits, one ballot a chunk; places within the tile
@@ -572,16 +572,11 @@ __global__ void __launch_bounds__(kThreads, kMinCtas) setop_intersect_many(ManyA
       for (int x = 0; x < kPer; ++x) bits[warp * kPer + x] = ball[x];
     }
     __syncthreads();
-    if (warp == 0) {
-      const int total = chunk_scan(bits, chunk_off);
-      const int gex = look_back(a.status, t, total);
-      if (lane == 0) {
-        s_gex = gex;
-        if (t == tiles - 1) a.head[1] = gex + total;
-      }
-    }
+    if (warp == 0) chunk_scan(bits, chunk_off);
     __syncthreads();
-    const int gex = s_gex;
+    const int total = chunk_off[kChunks];
+    const int gex = look_back_block(a.status, t, total, s_first, s_sums);
+    if (tid == 0 && t == tiles - 1) a.head[1] = gex + total;
 #pragma unroll
     for (int x = 0; x < kPer; ++x) {
       if ((ball[x] >> lane) & 1u) {

@@ -30,10 +30,13 @@ from dgraph_tpu_torch.query import dispatch
 
 U32 = 0xFFFFFFFF
 SEG = 1 << 32
-PAIR_SHAPES = [("3-and-5", [3, 5]), ("20-pairs", list(range(0, 80, 2))),
-               ("across-tiles", [3000, 5000, 2500, 10]), ("lopsided", [1, 3000, 3000, 1])]
-LIST_SHAPES = [("k2", [300, 500]), ("k3", [200, 4000, 300]),
-               ("k256", list(np.random.default_rng(0).integers(0, 20, 256)))]
+# (id, list lengths, merge_lists_case options); "window-8193": list 0's
+# window in list 1 one word wider than the k-way intersection stages whole
+PAIR_SHAPES = [("3-and-5", [3, 5], {}), ("20-pairs", list(range(0, 80, 2)), {}),
+               ("across-tiles", [3000, 5000, 2500, 10], {}), ("lopsided", [1, 3000, 3000, 1], {})]
+LIST_SHAPES = [("k2", [300, 500], {}), ("k3", [200, 4000, 300], {}),
+               ("k256", list(np.random.default_rng(0).integers(0, 20, 256)), {}),
+               ("window-8193", [2000, 9216, 3000], {"window": 8193})]
 
 
 def _t(arrays, device="cpu"):
@@ -90,7 +93,7 @@ def _reference(name, X, offs):
     ids=lambda v: v if isinstance(v, str) else v[0],
 )
 def test_plain_matches_reference(name, shape, kind):
-    X, offs = chip_smoke.merge_lists_case(shape[1], seed=len(shape[1]), kind=kind)
+    X, offs = chip_smoke.merge_lists_case(shape[1], seed=len(shape[1]), kind=kind, **shape[2])
     want_words, want_off = _reference(name, X, offs)
     calls = setop_merge.PLAIN_CALLS[name]
     out, head = getattr(setop_merge, name)(*_t([X, offs]))
@@ -205,17 +208,17 @@ def _numpy_answer(name, X, offs):
 
 @pytest.mark.parametrize(
     "case,kind",
-    [(c, kind) for c in chip_smoke.merge_cases()
-     for kind in (chip_smoke.LONG_KINDS if max(c[2]) >= 1 << 20 else chip_smoke.MERGE_KINDS)],
+    [(c, kind) for c in chip_smoke.merge_cases() for kind in chip_smoke.merge_case_kinds(c)],
     ids=lambda v: v if isinstance(v, str) else f"{v[0]}-{v[1]}",
 )
 def test_plain_matches_numpy_at_merge_cases(case, kind):
     """The plain versions, which phase 3c and the card tests hold the
-    kernels to, answer as numpy at every case of merge_cases (the pair of
-    2^20 at LONG_KINDS, as phase 3c checks it): tile edges inside a job,
-    empty lists between full ones, k of 1 to 10 rounds."""
-    name, _, lens = case
-    X, offs = chip_smoke.merge_lists_case(lens, seed=len(lens), kind=kind)
+    kernels to, answer as numpy at every case of merge_cases (lists of
+    2^20 at LONG_KINDS, as phase 3c checks them): tile edges inside a job,
+    empty lists between full ones, k of 1 to 10 rounds, windows of list 1
+    too wide for the intersection to stage."""
+    name = case[0]
+    X, offs = chip_smoke.merge_case_lists(case, kind)
     off, words = chip_smoke.merge_words(name, setop_merge.PLAIN[name](*_t([X, offs])))
     want_off, want_words = _numpy_answer(name, X, offs)
     np.testing.assert_array_equal(off.numpy(), want_off)
@@ -384,8 +387,9 @@ def test_many_sector_bytes(lists, want):
 
 
 def test_probe_copy_of_the_kernel():
-    """setop_merge_probe.py stamps each phase of a union tile: every edit
-    finds its place in the kernel's source, once."""
+    """setop_merge_probe.py stamps each phase of a union tile and of an
+    intersect tile: every edit finds its place in the kernel's source,
+    once."""
     import os
 
     import setop_merge_probe
@@ -394,10 +398,17 @@ def test_probe_copy_of_the_kernel():
     with open(os.path.join(cuda_build.CSRC, "setop_merge.cu")) as f:
         src = f.read()
     probed = setop_merge_probe.probe_source(src)
-    assert [probed.count(f"PROBE({n})") for n in range(3, 8)] == [1] * 5
+    # PROBE(3)-(7) in the union tile; (7), (8) in the intersect tile
+    assert [probed.count(f"PROBE({n})") for n in range(3, 9)] == [1, 1, 1, 1, 2, 1]
+    # the intersect tile's bounds, staging and searches, summed over its lists
+    for stamp in ("c_bounds += clock64() - c0;", "c_stage += c2 - c1;",
+                  "c_search += clock64() - c2;", "g_probe[slot][11] = c_lists;"):
+        assert probed.count(stamp) == 1
     assert "extern \"C\" int probe_read" in probed
     with pytest.raises(ValueError):
         setop_merge_probe.probe_source(src.replace("sm.first, sm.sums);", "sm.first);"))
+    with pytest.raises(ValueError):
+        setop_merge_probe.probe_source(src.replace("  // the round's windows", ""))
 
 
 def test_plain_calls_apart_from_launches():
@@ -426,8 +437,8 @@ def card():
 def test_kernel_matches_plain_on_card(card, case, kind):
     """Kernel == plain exactly, the call made twice back to back (each
     call's look-back state is its own); one launch counted a call."""
-    name, _, lens = case
-    args = _t(chip_smoke.merge_lists_case(lens, seed=len(lens), kind=kind), card)
+    name = case[0]
+    args = _t(chip_smoke.merge_case_lists(case, kind), card)
     launches = setop_merge.LAUNCHES[name]
     r = chip_smoke.measure_merge(name, args, timed=False)
     assert setop_merge.LAUNCHES[name] == launches + 2
