@@ -184,16 +184,26 @@ Phases, each of which fails the run when it fails:
      metrics route). (13b) the mesh (`parallel/mesh.py`) on 4 shards of
      cuda:0: `sharded_rows_membership`, `sharded_membership` and
      `sharded_intersect_count` of (b)'s level-3 rows against an operand
-     of more than 2^22 uids, `sharded_topk` over `emb`'s 1,000,000 x 768
-     for 16 queries, `sharded_kmeans_step` on `emb_small`'s rows, each
-     against its plain version and the one-device mesh, with times and
-     bounds; then, with the counts zeroed, `Server.query` (b) with the
+     of more than 2^22 uids (K1 in 128-wide chunks a shard),
+     `sharded_topk` over `emb`'s 1,000,000 x 768 for 16 queries (KV3's
+     distances and KV1 a shard), `sharded_kmeans_step` on `emb_small`'s
+     rows, each against its plain version and the one-device mesh, with
+     times, the kernels' launches and device times, and bounds; KV3
+     within its tolerance of its plain version on the shards; then,
+     with the counts zeroed, `Server.query` (b) with the
      dispatcher's giant-operand gate lowered (on phase 4's graph it
      enters `_run_rows_sharded` and falls through, its uids spanning two
      hi-32 segments; on the same graph with the pool below 2^32 the mesh
-     answers) and `similar_to` with `SHARD_VECTORS=1` on a fresh
-     `emb_small` index, equal to the exact top-10. Every KV1 call the
-     mesh made is held against its plain version.
+     answers through K1) and `similar_to` with `SHARD_VECTORS=1` on a
+     fresh `emb_small` index (KV3 and KV1), equal to the exact top-10;
+     K1, KV3 and KV1 must have launched. Every KV1 and KV3 call the
+     mesh made is held against its plain version. (13c) the port's
+     entry points, `__graft_entry_torch__.py`: `entry()`'s batched
+     intersection (setop_rows) and brute top-k (GEMM + KV1) on the card
+     against the same step on the host and numpy, then
+     `dryrun_multichip(4)` on 4 shards of cuda:0 (the mesh step, and a
+     DQL read through a `DistributedCluster` whose giant operand is
+     row-sharded over the mesh); K1 and KV3 must launch.
 
 `--profile` adds, for the named queries (a-d of phase 4, e-i of phase
 7; with `--merge-only`, e and f of phase 4c on both paths), where one
@@ -5525,12 +5535,107 @@ def _timed(on_card, fn, reps=5):
     return _events_ms(fn, reps) if on_card else None
 
 
+def sq_distance_bound_ms(V):
+    """KV3's least time: V read once, q read once, the distances written
+    once; a subtraction, a multiplication and an addition per element."""
+    rows, d = V.shape
+    return _bound(4 * rows * d + 4 * d + 4 * rows, 3 * rows * d)
+
+
+def measure_sq_distance(V, q, reps=7):
+    """KV3 vs plain, each distance within sq_distance.TOL of the plain one
+    (relative; NaN and +inf where plain has them), with the kernel,
+    device, plain and library times and the bound. The library call is
+    torch.cdist (the distance: the square root of KV3's)."""
+    import torch
+
+    from dgraph_tpu_torch.ops import sq_distance
+
+    got = sq_distance.sq_distance(V, q)
+    want = sq_distance.sq_distance_plain(V, q)
+    torch.cuda.synchronize()
+    bad = int((~torch.isclose(got, want, rtol=sq_distance.TOL, atol=0.0, equal_nan=True)).sum())
+    fin = torch.isfinite(want)
+    bound, bound_by = sq_distance_bound_ms(V)
+    return {
+        "mismatches": bad,
+        "max_abs_err": float((got - want)[fin].abs().max()) if bool(fin.any()) else 0.0,
+        "ms": _events_ms(lambda: sq_distance.sq_distance(V, q), reps),
+        "device_ms": kernel_device_ms(lambda: sq_distance.sq_distance(V, q),
+                                      name="sq_distance_kernel"),
+        "device_trace": dict(LAST_TRACE),
+        "plain_ms": _events_ms(lambda: sq_distance.sq_distance_plain(V, q), reps),
+        "library_ms": _events_ms(lambda: torch.cdist(q[None, :], V), reps),
+        "bound_ms": bound,
+        "bound_by": bound_by,
+    }
+
+
+class _SqCapture:
+    """Keeps the first input of each shape the main path hands KV3's
+    wrapper (references: the tensors are not written after) and
+    delegates every call unchanged."""
+
+    def __enter__(self):
+        from dgraph_tpu_torch.ops import sq_distance
+
+        self.module, self.real = sq_distance, sq_distance.sq_distance
+        self.by_shape = {}
+
+        def call(V, q):
+            self.by_shape.setdefault(tuple(V.shape), (V, q))
+            return self.real(V, q)
+
+        sq_distance.sq_distance = call
+        return self
+
+    def __exit__(self, *exc):
+        self.module.sq_distance = self.real
+
+
+def served_sq_distance(by_shape, on_card, log=print):
+    """KV3 on every input shape a path gave it, held to its plain version
+    (`measure_sq_distance`); on the host, where both are the plain
+    version, only the shapes. Returns {site: result}."""
+    res = {}
+    for shape, (V, q) in by_shape.items():
+        site = f"KV3 {shape[0]}x{shape[1]}"
+        if not on_card:
+            res[site] = {}
+            continue
+        res[site] = measure_sq_distance(V, q)
+        if res[site]["mismatches"]:
+            raise AssertionError(f"{site}: kernel beyond tolerance of plain: {res[site]}")
+        log(f"{site}: within sq_distance.TOL of plain; {_fmt(res[site])}")
+    return res
+
+
+def _launch_counts():
+    """Launches so far of the kernels under the mesh and the port's
+    entry points: K1, KV3, KV1 and setop_rows."""
+    from dgraph_tpu_torch.ops import member_sweep, setop_rows, sq_distance, vector_topk
+
+    return {m.__name__.rsplit(".", 1)[1]: m.LAUNCHES
+            for m in (member_sweep, sq_distance, vector_topk, setop_rows)}
+
+
+def _launched(fn):
+    """(result, {kernel: launches}) of one call of fn."""
+    before = _launch_counts()
+    got = fn()
+    return got, {k: n - before[k] for k, n in _launch_counts().items() if n - before[k]}
+
+
 def mesh_functions(device, g, V, Q, exact, X, log=print):
     """(13b), the mesh functions on MESH_SHARDS shards of `device`, each
     against its plain version (the same function on one device, without
     the mesh) and the one-device mesh's answer, with times, the byte (or
-    operation) bound and the library call's time on the card. Returns
-    {function: result}."""
+    operation) bound, the library call's time on the card, the kernels
+    one call launches and their device time: K1 in 128-wide chunks
+    under the memberships, KV3 and KV1 under the top-k, and KV3 held to
+    its plain version on every shard input the top-k gave it
+    (`["sharded_topk"]["kv3"]`). Returns ({function: result}, the
+    captured KV1 and KV2 inputs)."""
     import torch
 
     from dgraph_tpu_torch.ops import setops, vector_topk
@@ -5547,7 +5652,21 @@ def mesh_functions(device, g, V, Q, exact, X, log=print):
         res[name] = {"route": route, "shape": shape, "bound_ms": b, "bound_by": by, **kw}
         log(f"{name} {shape} [{route}]: " + ", ".join(
             f"{k} {v:.6f}" if isinstance(v, float) else f"{k} {v}"
-            for k, v in res[name].items() if k not in ("route", "shape")))
+            for k, v in res[name].items() if k not in ("route", "shape", "kv3")))
+
+    def kernels(fn, launched, kv1=None):
+        """What one call of fn launched, and their device time a call."""
+        if not on_card:
+            return {"launches": sum(launched.values()), "launches_by_kernel": launched,
+                    "device_ms": None}
+        names = {"member_sweep_kernel": launched.get("member_sweep", 0),
+                 "sq_distance_kernel": launched.get("sq_distance", 0)}
+        for shape, calls in (kv1 or {}).items():
+            for kname, c in vector_topk.launch_counts(*shape).items():
+                names[kname] = names.get(kname, 0) + c * calls
+        names = {k: c for k, c in names.items() if c}
+        return {"launches": sum(launched.values()), "launches_by_kernel": launched,
+                "device_ms": kernel_device_ms(fn, name=names) if names else None}
 
     # membership: (b)'s level-3 rows against a giant operand
     A, LA = _mesh_rows(g)
@@ -5557,7 +5676,8 @@ def mesh_functions(device, g, V, Q, exact, X, log=print):
     Bd = setops.to_device(setops.pad_sorted(b, pb), dev)
     Ad, LAd = setops.to_device(A, dev), torch.from_numpy(LA).to(dev)
     Bs = pmesh.shard(mesh, Bd)
-    got = pmesh.sharded_rows_membership(mesh, Ad, LAd, Bs, len(b))
+    rows_fn = lambda: pmesh.sharded_rows_membership(mesh, Ad, LAd, Bs, len(b))  # noqa: E731
+    got, launched = _launched(rows_fn)
     plain = lambda: setops.membership(Ad, LAd, Bd, len(b))  # noqa: E731
     want = np.isin(A, b) & (np.arange(A.shape[1])[None, :] < LA[:, None])
     for what, m in (("plain", plain()), ("one device",
@@ -5566,36 +5686,39 @@ def mesh_functions(device, g, V, Q, exact, X, log=print):
             raise AssertionError(f"sharded_rows_membership != {what}")
     if not np.array_equal(got.cpu().numpy(), want):
         raise AssertionError("sharded_rows_membership != numpy")
-    row("sharded_rows_membership", "setops.membership (plain torch) a shard, psum > 0",
+    row("sharded_rows_membership", "K1 (member_sweep.cu) in 128-wide chunks a shard, psum > 0",
         [list(A.shape), len(b), pb], Ad.numel() * 8 + LAd.numel() * 4 + pb * 8 + A.size,
-        hits=int(want.sum()), max_abs_err=0.0,
-        ms=_timed(on_card, lambda: pmesh.sharded_rows_membership(mesh, Ad, LAd, Bs, len(b))),
+        hits=int(want.sum()), max_abs_err=0.0, ms=_timed(on_card, rows_fn),
         plain_ms=_timed(on_card, plain),
-        library_ms=_timed(on_card, lambda: torch.isin(Ad, Bd[: len(b)])), launches=0)
+        library_ms=_timed(on_card, lambda: torch.isin(Ad, Bd[: len(b)])),
+        **kernels(rows_fn, launched))
 
     a = np.unique(A[A != U32])
     pa = mesh.size * max(8, 1 << (-(-len(a) // mesh.size) - 1).bit_length())
     ad = setops.to_device(setops.pad_sorted(a, pa), dev)
-    got = pmesh.sharded_membership(mesh, ad, len(a), Bd, len(b))
+    member_fn = lambda: pmesh.sharded_membership(mesh, ad, len(a), Bd, len(b))  # noqa: E731
+    got, launched = _launched(member_fn)
     plain = lambda: setops.membership(ad, len(a), Bd, len(b))  # noqa: E731
     if not (torch.equal(got, plain())
             and torch.equal(got, pmesh.sharded_membership(one, ad, len(a), Bd, len(b)))
             and np.array_equal(got.cpu().numpy()[: len(a)], np.isin(a, b))):
         raise AssertionError("sharded_membership != plain, one device or numpy")
-    row("sharded_membership", "setops.membership (plain torch) a shard, all_gather",
+    row("sharded_membership", "K1 (member_sweep.cu) in 128-wide chunks a shard, all_gather",
         [pa, len(b)], pa * 8 + pb * 8 + pa, hits=int(got.sum()), max_abs_err=0.0,
-        ms=_timed(on_card, lambda: pmesh.sharded_membership(mesh, ad, len(a), Bd, len(b))),
-        plain_ms=_timed(on_card, plain),
-        library_ms=_timed(on_card, lambda: torch.isin(ad, Bd[: len(b)])), launches=0)
-    cnt = int(pmesh.sharded_intersect_count(mesh, ad, len(a), Bd, len(b)))
+        ms=_timed(on_card, member_fn), plain_ms=_timed(on_card, plain),
+        library_ms=_timed(on_card, lambda: torch.isin(ad, Bd[: len(b)])),
+        **kernels(member_fn, launched))
+    count_fn = lambda: pmesh.sharded_intersect_count(mesh, ad, len(a), Bd, len(b))  # noqa: E731
+    cnt, launched = _launched(count_fn)
+    cnt = int(cnt)
     if cnt != int(np.isin(a, b).sum()) or cnt != int(
             pmesh.sharded_intersect_count(one, ad, len(a), Bd, len(b))):
         raise AssertionError("sharded_intersect_count != numpy or one device")
-    row("sharded_intersect_count", "setops.membership (plain torch) a shard, psum",
+    row("sharded_intersect_count", "K1 (member_sweep.cu) in 128-wide chunks a shard, psum",
         [pa, len(b)], pa * 8 + pb * 8 + 4, count=cnt, max_abs_err=0.0,
-        ms=_timed(on_card, lambda: pmesh.sharded_intersect_count(mesh, ad, len(a), Bd, len(b))),
-        plain_ms=_timed(on_card, lambda: plain().sum()),
-        library_ms=_timed(on_card, lambda: torch.isin(ad, Bd[: len(b)]).sum()), launches=0)
+        ms=_timed(on_card, count_fn), plain_ms=_timed(on_card, lambda: plain().sum()),
+        library_ms=_timed(on_card, lambda: torch.isin(ad, Bd[: len(b)]).sum()),
+        **kernels(count_fn, launched))
     del Bd, Bs, Ad, LAd, ad
 
     # top-k: the corpus row-sharded, one query at a time
@@ -5604,10 +5727,9 @@ def mesh_functions(device, g, V, Q, exact, X, log=print):
     valid = torch.ones(len(V), dtype=torch.bool, device=dev)
     Vs, valids = pmesh.shard(mesh, Vd), pmesh.shard(mesh, valid)
     Qd = torch.from_numpy(Q).to(dev)
-    l0 = vector_topk.LAUNCHES
-    with _VecCapture() as cap:
-        rows = [pmesh.sharded_topk(mesh, Vs, valids, q, k) for q in Qd]
-    launches = vector_topk.LAUNCHES - l0
+    with _VecCapture() as cap, _SqCapture() as sqcap:
+        rows, launched = _launched(lambda: [pmesh.sharded_topk(mesh, Vs, valids, q, k)
+                                            for q in Qd])
 
     def plain_topk(q):
         d2 = ((Vd - q[None, :]) ** 2).sum(dim=1)
@@ -5626,15 +5748,18 @@ def mesh_functions(device, g, V, Q, exact, X, log=print):
         raise AssertionError("sharded_topk != the exact top-k outside near-ties")
     same = int(sum(np.array_equal(i, e) for i, e in zip(ids, exact[0][: len(Q)])))
     q0 = Qd[0]
-    row("sharded_topk", "KV1 (vector_topk.cu) a shard on the finished distance, all_gather, KV1",
+    topk_fn = lambda: pmesh.sharded_topk(mesh, Vs, valids, q0, k)  # noqa: E731
+    shard_rows, kk = Vs[0].shape[0], min(k, Vs[0].shape[0])
+    kv1 = {(1, shard_rows, kk): mesh.size, (1, mesh.size * kk, k): 1}
+    row("sharded_topk", "KV3 (sq_distance.cu) and KV1 (vector_topk.cu) a shard, all_gather, KV1",
         [list(V.shape), len(Q), k], V.nbytes + len(V) + Q.shape[1] * 4 + k * 8,
-        3 * V.size, exact_id_lists=same, max_abs_err=err,
-        ms=_timed(on_card, lambda: pmesh.sharded_topk(mesh, Vs, valids, q0, k)),
+        3 * V.size, exact_id_lists=same, max_abs_err=err, ms=_timed(on_card, topk_fn),
         plain_ms=_timed(on_card, lambda: plain_topk(q0)),
         library_ms=_timed(on_card, lambda: torch.topk(torch.cdist(q0[None, :], Vd), k,
                                                       largest=False)),
-        launches=launches)
-    del Vd, valid, Vs, valids
+        **kernels(topk_fn, {n: c // len(Q) for n, c in launched.items()}, kv1),
+        kv3=served_sq_distance(sqcap.by_shape, on_card, log=log))
+    del Vd, valid, Vs, valids, sqcap
     captured = (cap.topk, cap.slabs)
 
     # k-means: one Lloyd step of X from the corpus's own centers (no
@@ -5671,7 +5796,7 @@ def mesh_main_path(device, g, answers, texts, small_V, Q, min_b=MESH_MIN_B, log=
     import torch
 
     from dgraph_tpu_torch.api.server import Server
-    from dgraph_tpu_torch.ops import member_sweep, vector_topk
+    from dgraph_tpu_torch.ops import member_sweep, sq_distance, vector_topk
     from dgraph_tpu_torch.parallel import mesh as pmesh
     from dgraph_tpu_torch.query import dispatch
 
@@ -5695,6 +5820,7 @@ def mesh_main_path(device, g, answers, texts, small_V, Q, min_b=MESH_MIN_B, log=
         with forced_device():
             member_sweep.LAUNCHES = member_sweep.PLAIN_CALLS = 0
             vector_topk.LAUNCHES = vector_topk.PLAIN_CALLS = 0
+            sq_distance.LAUNCHES = sq_distance.PLAIN_CALLS = 0
             for what, (srv, gg) in servers.items():
                 # the two stores hold the same keys, perhaps at the same
                 # timestamps: the operand cache must not serve one the
@@ -5729,7 +5855,7 @@ def mesh_main_path(device, g, answers, texts, small_V, Q, min_b=MESH_MIN_B, log=
                 srv.alter(SMALL_SCHEMA)
                 idx = srv.vector_indexes["emb_small"]
                 idx.bulk_load(np.arange(1, len(small_V) + 1, dtype=np.uint64), small_V)
-                with _VecCapture() as cap:
+                with _VecCapture() as cap, _SqCapture() as sqcap:
                     rows = []
                     t = time.perf_counter()
                     for q in Q:
@@ -5744,13 +5870,13 @@ def mesh_main_path(device, g, answers, texts, small_V, Q, min_b=MESH_MIN_B, log=
             if not near_equal(small_V, Q, rows, ex_d):
                 raise AssertionError("similar_to over the mesh != the exact top-10")
             out["similar_exact"] = int(sum(r == sorted(e) for r, e in zip(rows, ex_i.tolist())))
-            out["launches"] = {"member_sweep": member_sweep.LAUNCHES if device != "cpu"
-                               else member_sweep.PLAIN_CALLS,
-                               "vector_topk": vector_topk.LAUNCHES if device != "cpu"
-                               else vector_topk.PLAIN_CALLS}
+            out["launches"] = {m.__name__.rsplit(".", 1)[1]: m.LAUNCHES if device != "cpu"
+                               else m.PLAIN_CALLS
+                               for m in (member_sweep, vector_topk, sq_distance)}
             log(f"similar_to(emb_small) x {len(Q)} over {MESH_SHARDS} shards: "
                 f"{out['similar_ms']:.3f} ms a read, {out['similar_exact']} of {len(Q)} id "
                 f"lists exact (any other within near-ties); launches {out['launches']}")
+            out["kv3"] = served_sq_distance(sqcap.by_shape, device != "cpu", log=log)
     finally:
         dispatch.SetOpDispatcher._run_rows_sharded = real
         dispatch._SHARD_MIN_B = saved
@@ -5771,6 +5897,57 @@ def mesh_data(device="cuda", fanout=100, pool=200_000, log=print):
             raise AssertionError(f"query {name}: != numpy reference")
     log("graph bulk-loaded and (a)-(d) answered, equal to numpy")
     return g, answers
+
+
+def graft_entry(device="cuda", log=print):
+    """(13c), the port's entry points (`__graft_entry_torch__.py`) on
+    `device`: `entry()`'s step against the same step on the host (the
+    plain versions) and numpy: intersections and counts equal, top-k ids
+    equal outside near-ties of the exact float64 top-k; then
+    `dryrun_multichip(MESH_SHARDS)`, the mesh step and a DQL read
+    through a `DistributedCluster` on MESH_SHARDS shards of the
+    device's cards. Returns its times and the kernels each part
+    launched."""
+    import torch
+
+    import __graft_entry_torch__ as graft
+    from dgraph_tpu_torch.query import dispatch
+
+    on_card = torch.device(device).type == "cuda"
+    out = {}
+    step, args = graft.entry(device)
+    got, launched = _launched(lambda: step(*args))
+    host_step, host_args = graft.entry("cpu")
+    want = host_step(*host_args)
+    A, LA, B, LB, V, Q = (t.cpu().numpy() for t in host_args)
+    inter, cnt, ids = (t.cpu().numpy() for t in got)
+    for i in range(len(A)):
+        kept = np.intersect1d(A[i, : LA[i]].view(np.uint32), B[i, : LB[i]].view(np.uint32))
+        if cnt[i] != len(kept) or not np.array_equal(inter[i, : cnt[i]], kept) \
+                or (inter[i, cnt[i]:] != U32).any():
+            raise AssertionError(f"entry(): row {i} of the intersection != numpy")
+    if not (np.array_equal(inter, want[0].numpy()) and np.array_equal(cnt, want[1].numpy())):
+        raise AssertionError("entry(): the intersection != the host's")
+    ex_i, ex_d = exact_topk(V, Q, ids.shape[1])
+    if not (near_equal(V, Q, ids, ex_d) and near_equal(V, Q, want[2].numpy(), ex_d)):
+        raise AssertionError("entry(): top-k != the exact top-k outside near-ties")
+    out["entry"] = {"launches": launched,
+                    "ids_equal_host": int((ids == want[2].numpy()).all(1).sum()),
+                    "ids_exact": int((ids == ex_i).all(1).sum()), "rows": len(ids),
+                    "ms": _timed(on_card, lambda: step(*args))}
+    log(f"entry(): intersections and counts equal to the host's and numpy; top-k id lists "
+        f"{out['entry']['ids_equal_host']} of {len(ids)} equal to the host's, "
+        f"{out['entry']['ids_exact']} exact (any other within near-ties); launches "
+        f"{launched}; step {out['entry']['ms']} ms")
+    dispatch.DISPATCHER.device_cache.clear()  # the dry run's store is another store
+    t = time.perf_counter()
+    _, launched = _launched(lambda: graft.dryrun_multichip(MESH_SHARDS, device))
+    dispatch.DISPATCHER.device_cache.clear()
+    out["dryrun"] = {"launches": launched, "s": time.perf_counter() - t}
+    if on_card and min(launched.get(k, 0) for k in ("member_sweep", "sq_distance")) < 1:
+        raise AssertionError(f"dryrun_multichip did not launch K1 and KV3: {launched}")
+    log(f"dryrun_multichip({MESH_SHARDS}): launches {launched}; {out['dryrun']['s']:.3f}s")
+    return out
 
 
 def cli_and_mesh_phase(g, answers, V, Q, exact, small_V, card, t_start):
@@ -5797,14 +5974,19 @@ def cli_and_mesh_phase(g, answers, V, Q, exact, small_V, card, t_start):
         path, cap_path = mesh_main_path("cuda", g, answers, texts, small_V, Q[:16], log=log)
     finally:
         pmesh.DEVICES = None
+    if min(path["launches"].values()) < 1:
+        raise AssertionError(f"a kernel of the mesh's path did not launch: {path['launches']}")
     served = {}
     for cap in (cap_fns, cap_path):
         for site, r in served_kernels(cap).items():
             served[site] = r
             log(f"{site} (phase 13 inputs): equal to plain; {_fmt(r)}")
+    print("[13c] the port's entry points: entry() against the host, dryrun_multichip("
+          f"{MESH_SHARDS}) on the card; at " + card, flush=True)
+    entry13 = graft_entry("cuda", log=log)
     out = {"cli": cli, "mesh": fns, "path": path, "launches": path["launches"],
-           "served": served, "s": time.perf_counter() - t13}
-    print("    [13] " + json.dumps({"mesh": fns, "path": path}), flush=True)
+           "served": served, "entry": entry13, "s": time.perf_counter() - t13}
+    print("    [13] " + json.dumps({"mesh": fns, "path": path, "entry": entry13}), flush=True)
     print(f"    phase 13 {out['s']:.3f}s; total {time.perf_counter() - t_start:.3f}s",
           flush=True)
     return out
@@ -6168,7 +6350,9 @@ def main(argv=None) -> int:
         for arm, w in writes.items()},
         "9": front["graph"]["sweeps"], "10": ops["launches"]["member_sweep"],
         "11": cl["launches"]["member_sweep"], "12": gq["launches"]["member_sweep"],
-        "13": p13["launches"]["member_sweep"]}
+        "13": p13["launches"]["member_sweep"],
+        "13c": sum(p13["entry"][part]["launches"].get("member_sweep", 0)
+                   for part in ("entry", "dryrun"))}
     rows = [{
         "name": "member_sweep",
         "route": "cuda",
@@ -6194,7 +6378,9 @@ def main(argv=None) -> int:
                             for arm, w in writes.items()})
         by_path["9"] = launches9[name]
         for phase, got in (("10", ops["launches"]), ("11", cl["launches"]),
-                           ("12", gq["launches"]), ("13", p13["launches"])):
+                           ("12", gq["launches"]), ("13", p13["launches"]),
+                           ("13c", {name: sum(p13["entry"][part]["launches"].get(name, 0)
+                                              for part in ("entry", "dryrun"))})):
             if name in got:
                 by_path[phase] = got[name]
         rows.append({
@@ -6203,6 +6389,16 @@ def main(argv=None) -> int:
             **{key: r[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")},
         })
+    kv3 = max(p13["mesh"]["sharded_topk"]["kv3"].values(), key=lambda r: r["bound_ms"])
+    by_path = {"13": p13["launches"]["sq_distance"],
+               "13c": p13["entry"]["dryrun"]["launches"].get("sq_distance", 0)}
+    rows.append({
+        "name": "sq_distance", "route": "cuda", "source": "dgraph_tpu_torch/csrc/sq_distance.cu",
+        "replaces": "dgraph_tpu/parallel/mesh.py:167", "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
+        **{key: kv3[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")},
+    })
     heavy = max(setop_main.values(), key=lambda r: r["bound_ms"])
     rows.append({
         "name": "setop_rows", "route": "cuda", "source": "dgraph_tpu_torch/csrc/setop_rows.cu",

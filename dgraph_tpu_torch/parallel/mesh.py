@@ -26,11 +26,16 @@ ordered tuple of torch devices that one process drives shard by shard.
 - No `torch.distributed`: the dispatcher and the vector index that call
   the mesh live in one process, and NCCL refuses two ranks on one card.
 
-Per-shard work runs on what the single-device path uses for the same
-function: `ops/setops.membership` for membership, KV1
-(`ops/vector_topk.topk`, on a finished distance) for the local and the
-global top-k, and `torch.matmul` (full float32) with `index_add_` for the
-k-means step.
+Per-shard work runs on hand-written kernels on a card:
+- membership on K1 (`ops/member_sweep.membership_batch`), each shard's
+  queries cut into rows of at most 128 (`member_chunks`) against the
+  shard's operand as K1's one shared B; on the host on
+  `ops/setops.membership`, a searchsorted, since K1's plain version
+  compares every query with every element of B;
+- the top-k's distances on KV3 (`ops/sq_distance`, one pass over the
+  shard), ranked by KV1 (`ops/vector_topk.topk`, on the finished
+  distance) for the local and the global top-k;
+- the k-means step on `torch.matmul` (full float32) with `index_add_`.
 
 `make_mesh(device="cuda")` takes the visible cards and raises without
 one; `make_mesh(device="cpu")` takes `HOST_WIDTH` shards of the host (the
@@ -52,7 +57,7 @@ import numpy as np
 import torch
 
 from dgraph_tpu_torch.device import resolve_device
-from dgraph_tpu_torch.ops import setops
+from dgraph_tpu_torch.ops import member_sweep, setops
 
 # shards of the host in a CPU mesh
 HOST_WIDTH = 1
@@ -156,14 +161,80 @@ def _local_len(length: int, i: int, tile_n: int) -> int:
 # ---------------------------------------------------------------------------
 
 
+def member_chunks(A, LA, b, lb: int, sweep) -> torch.Tensor:
+    """mask[i, j] = j < LA[i] and A[i, j] in b[:lb], through a member
+    sweep (`sweep`: K1's `membership_batch`, or its plain version).
+
+    A (n, pa) u32 uids, each row sorted within LA: an (n,) tensor, or an
+    int when n is 1; b sorted u32 uids; A and b as int64 values or as
+    their u32 bits in int32, which K1 takes. K1 takes at most
+    `member_sweep.LANE` queries a row, so row i is cut into chunks of
+    that width: chunk c holds A[i, c * LANE:(c + 1) * LANE] with length
+    LA[i] - c * LANE (none valid below 0, all above LANE, as K1 reads a
+    length), and every chunk searches b's first lb uids as K1's one
+    shared B. Validity stays by index, so UINT32_MAX is a uid like any
+    other."""
+    n, pa = A.shape
+    dev = A.device
+    if not A.numel():
+        return torch.zeros((n, pa), dtype=torch.bool, device=dev)
+    w = min(pa, member_sweep.LANE)
+    c = -(-pa // w)
+    bits = _bits(A)
+    if c * w != pa:  # the last chunk's columns past pa are never valid
+        bits = torch.cat([bits, bits.new_zeros((n, c * w - pa))], dim=1)
+    if not torch.is_tensor(LA):
+        la = torch.arange(LA, LA - c * w, -w, dtype=torch.int32, device=dev)
+    else:
+        la = LA.to(device=dev, dtype=torch.int32)
+        if c > 1:
+            la = la[:, None] - torch.arange(0, c * w, w, dtype=torch.int32, device=dev)
+    LB = torch.full((1,), lb, dtype=torch.int32, device=dev)
+    hit = sweep(bits.reshape(n * c, w), la.reshape(-1), _bits(b[:lb]), LB)
+    return hit.view(n, c * w)[:, :pa]
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """u32 uids as their bits in int32: int64 values converted (the
+    conversion keeps the low 32 bits), int32 bits as they are."""
+    return x if x.dtype == torch.int32 else x.to(torch.int32)
+
+
+def _sweep(device: torch.device):
+    """The member sweep a shard on `device` takes: K1 on a card; None on
+    the host, where `setops.membership` searches (K1's plain version
+    compares every query with every element of b)."""
+    return member_sweep.membership_batch if device.type == "cuda" else None
+
+
+def _searched(mesh: Mesh, x, n=None):
+    """A replicated operand as the shards search it: on a card (K1) its
+    first n uids (all of them by default) as u32 bits, converted once
+    and copied to each device as 4-byte words; on the host as given."""
+    if _sweep(mesh.devices[0]) is None:
+        return x
+    return _bits(_tensor(x)[: n if n is not None else len(x)])
+
+
+def _membership(a, la, b, lb: int) -> torch.Tensor:
+    """One shard's membership: a (pa,) with la an int, or a (n, pa) with
+    la (n,), against b[:lb]."""
+    sweep = _sweep(a.device)
+    if sweep is None:
+        return setops.membership(a, la, b, lb)
+    if a.dim() == 2:
+        return member_chunks(a, la, b, lb, sweep)
+    return member_chunks(a[None, :], int(la), b, lb, sweep)[0]
+
+
 def sharded_membership(mesh: Mesh, a, la, b, lb) -> torch.Tensor:
     """mask over row-sharded `a` (padded multiple of the mesh size),
     gathered on the mesh's first device."""
     tiles = shard(mesh, a)
-    b_on = _Replicated(b)
+    b_on = _Replicated(_searched(mesh, b, int(lb)))
     n = tiles[0].shape[0]
     parts = [
-        setops.membership(t, _local_len(int(la), i, n), b_on[t.device], int(lb))
+        _membership(t, _local_len(int(la), i, n), b_on[t.device], int(lb))
         for i, t in enumerate(tiles)
     ]
     return _all_gather(mesh, parts)
@@ -181,10 +252,10 @@ def sharded_rows_membership(mesh: Mesh, A, LA, b, lb) -> torch.Tensor:
     level's rows against its tile, and the masks OR-reduce (psum > 0).
     Ref worker/task.go fan-out replaced by one collective."""
     tiles = shard(mesh, b)
-    A_on, LA_on = _Replicated(A), _Replicated(LA)
+    A_on, LA_on = _Replicated(_searched(mesh, A)), _Replicated(LA)
     tile_n = tiles[0].shape[0]
     parts = [
-        setops.membership(
+        _membership(
             A_on[t.device], LA_on[t.device], t, _local_len(int(lb), i, tile_n)
         ).to(torch.int32)
         for i, t in enumerate(tiles)
@@ -196,10 +267,10 @@ def sharded_intersect_count(mesh: Mesh, a, la, b, lb) -> torch.Tensor:
     """Total intersection size of a row-sharded list vs replicated list
     (psum over the mesh)."""
     tiles = shard(mesh, a)
-    b_on = _Replicated(b)
+    b_on = _Replicated(_searched(mesh, b, int(lb)))
     n = tiles[0].shape[0]
     parts = [
-        setops.membership(
+        _membership(
             t, _local_len(int(la), i, n), b_on[t.device], int(lb)
         ).sum(dtype=torch.int32)
         for i, t in enumerate(tiles)
@@ -216,10 +287,11 @@ def sharded_intersect_count(mesh: Mesh, a, la, b, lb) -> torch.Tensor:
 def sharded_topk(mesh: Mesh, V, valid, q, k: int):
     """Returns (global top-k squared-euclidean distances, global row ids)
     on the mesh's first device, in `lax.top_k`'s order: ascending, ties
-    to the lower flat index, the flat order shard-major. Each shard ranks
-    its finished distances with KV1 (metric "distance"), invalid rows at
-    +inf; KV1 ranks the gathered candidates again."""
-    from dgraph_tpu_torch.ops import vector_topk
+    to the lower flat index, the flat order shard-major. Each shard's
+    distances are KV3's (`sq_distance`: one pass over the shard), ranked
+    with KV1 (metric "distance"), invalid rows at +inf; KV1 ranks the
+    gathered candidates again."""
+    from dgraph_tpu_torch.ops import sq_distance, vector_topk
 
     V_tiles, valid_tiles = shard(mesh, V), shard(mesh, valid)
     q_on = _Replicated(q)
@@ -227,7 +299,7 @@ def sharded_topk(mesh: Mesh, V, valid, q, k: int):
     kk = min(k, rows)
     dists, ids = [], []
     for i, (Vt, vt) in enumerate(zip(V_tiles, valid_tiles)):
-        d2 = ((Vt - q_on[Vt.device][None, :]) ** 2).sum(dim=1)
+        d2 = sq_distance.sq_distance(Vt, q_on[Vt.device])
         d, idx = vector_topk.topk(d2[None, :], kk, "distance", valid=vt)
         dists.append(d[0])
         ids.append(idx[0] + i * rows)

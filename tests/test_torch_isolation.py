@@ -58,6 +58,7 @@ PORTED = {
     "ops/setop_merge.py",
     "ops/setop_rows.py",
     "ops/setops.py",
+    "ops/sq_distance.py",
     "ops/vector_topk.py",
     "parallel/mesh.py",
     "query/dispatch.py",
@@ -131,7 +132,7 @@ def _banned_imports(path):
 
 @pytest.mark.parametrize(
     "rel", _port_files() + ["../chip_smoke.py", "../member_sweep_crossover.py",
-                            "../setop_merge_probe.py"],
+                            "../setop_merge_probe.py", "../__graft_entry_torch__.py"],
     ids=lambda r: r,
 )
 def test_no_jax_or_reference_imports(rel):

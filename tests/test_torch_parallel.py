@@ -20,7 +20,14 @@ tests/conftest.py gives jax; the port on a mesh of 8 shards of the host
   `search_batch` and a filtered search that widens its pool; on one
   device both packages take the single-device path;
 - the finding that `sharded_topk` takes no metric: a cosine index on a
-  mesh ranks by squared euclidean distance, in both packages.
+  mesh ranks by squared euclidean distance, in both packages;
+- the kernels' plain versions under the mesh: KV3's (`sq_distance_plain`)
+  against the reference's per-shard distance within RTOL, and K1's
+  128-wide chunking (`mesh.member_chunks`) with K1's wrapper on CPU
+  tensors (its plain version) as the sweep, against `setops.membership` and, through every membership
+  function of the mesh, against the reference bit for bit: rows of 1,
+  128, 129 and 1,024 queries, tiles that are not a multiple of 128,
+  shards whose window is empty, and UINT32_MAX as a uid.
 """
 
 import numpy as np
@@ -37,7 +44,7 @@ from dgraph_tpu.models import vector as ref_vector
 from dgraph_tpu.parallel import mesh as ref_mesh
 from dgraph_tpu.query import dispatch as ref_dispatch
 from dgraph_tpu_torch.models import vector
-from dgraph_tpu_torch.ops import setops
+from dgraph_tpu_torch.ops import member_sweep, setops, sq_distance
 from dgraph_tpu_torch.parallel import mesh as pmesh
 from dgraph_tpu_torch.query import dispatch
 
@@ -215,6 +222,132 @@ def test_sharded_kmeans_step_with_padding(meshes):
     got = pmesh.sharded_kmeans_step(pm, Xp, valid, torch.from_numpy(C)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
     np.testing.assert_array_equal(got[7], C[7])
+
+
+# ---------------------------------------------------------------------------
+# The kernels under the mesh: KV3's plain version, K1's 128-wide chunks
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("d", [1, 3, 8, 768, 769])
+def test_sq_distance_plain_matches_reference(d):
+    """KV3's wrapper on CPU tensors (its plain version) against the
+    reference's per-shard distance (`dgraph_tpu/parallel/mesh.py:167`)
+    in jax, within RTOL; +inf and NaN inputs give +inf and NaN in both,
+    and a row equal to the query 0."""
+    rng = np.random.default_rng(d)
+    V = rng.standard_normal((257, d)).astype(np.float32) * 3.0
+    q = rng.standard_normal(d).astype(np.float32)
+    V[3, 0], V[4, d - 1], V[5] = np.inf, np.nan, q
+    want = np.asarray(((jnp.asarray(V) - jnp.asarray(q)[None, :]) ** 2).sum(axis=1))
+    before = sq_distance.PLAIN_CALLS
+    got = sq_distance.sq_distance(torch.from_numpy(V), torch.from_numpy(q)).numpy()
+    assert sq_distance.PLAIN_CALLS == before + 1 and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=RTOL)
+    assert np.isposinf(got[3]) and np.isnan(got[4]) and got[5] == 0.0
+
+
+def _sorted_rows(rng, b, n, pa, lens):
+    """(A (n, pa) u32 padded with UINT32_MAX, LA): row i holds lens[i]
+    sorted uids, about half of them from b, the last of the full row
+    UINT32_MAX as a uid."""
+    A = np.full((n, pa), U32, np.uint32)
+    LA = np.asarray(lens, np.int32)
+    for i, la in enumerate(lens):
+        pool = np.unique(np.concatenate([
+            rng.choice(b, min(len(b), la), replace=False),
+            rng.integers(0, U32, la + 1, dtype=np.uint64).astype(np.uint32)]))
+        r = np.sort(rng.choice(pool, la, replace=False))
+        if la == pa:
+            r[-1] = U32
+        A[i, :la] = r
+    return A, LA
+
+
+def _lens(rng, pa, n=6):
+    return [0, pa, 1, pa // 2, max(pa - 1, 0), int(rng.integers(0, pa + 1))][:n]
+
+
+@pytest.mark.parametrize("pa", [1, 128, 129, 1024])
+def test_member_chunks_matches_setops(pa):
+    """K1's chunking of rows of pa queries into rows of at most 128, with
+    K1's wrapper on CPU tensors (its plain version) as the sweep, equals `setops.membership` and
+    numpy: b holding UINT32_MAX as its last uid, then without it (lb one
+    short: the rows' UINT32_MAX must miss), then empty."""
+    rng = np.random.default_rng(pa)
+    b = np.unique(np.concatenate([
+        rng.integers(0, U32, 3000, dtype=np.uint64).astype(np.uint32), [U32]]))
+    A, LA = _sorted_rows(rng, b, 6, pa, _lens(rng, pa))
+    Ad, LAd = setops.to_device(A, "cpu"), torch.from_numpy(LA)
+    Bd = setops.to_device(setops.pad_sorted(b, len(b) + 37), "cpu")
+    before = member_sweep.PLAIN_CALLS
+    for lb in (len(b), len(b) - 1, 0):
+        got = pmesh.member_chunks(Ad, LAd, Bd, lb, member_sweep.membership_batch)
+        assert tuple(got.shape) == (6, pa) and got.dtype == torch.bool
+        assert torch.equal(got, setops.membership(Ad, LAd, Bd, lb))
+        want = np.isin(A, b[:lb]) & (np.arange(pa)[None, :] < LA[:, None])
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert bool(got[1, pa - 1]) == (lb == len(b))  # UINT32_MAX, a real uid
+    assert member_sweep.PLAIN_CALLS == before + 3
+    assert want.sum() == 0
+
+
+@pytest.fixture(params=["searchsorted", "k1_chunks"])
+def shard_path(request, monkeypatch):
+    """The mesh's per-shard membership as on the host (`setops.membership`)
+    or as on a card (`member_chunks`), with K1's wrapper on CPU tensors
+    (its plain version) as the sweep; yields how to tell that the chunks
+    ran."""
+    if request.param == "k1_chunks":
+        monkeypatch.setattr(pmesh, "_sweep", lambda device: member_sweep.membership_batch)
+    before = member_sweep.PLAIN_CALLS
+    yield lambda: (member_sweep.PLAIN_CALLS > before) == (request.param == "k1_chunks")
+
+
+@pytest.mark.parametrize("pa", [1, 128, 129, 1024])
+def test_sharded_rows_membership_edges(meshes, shard_path, pa):
+    """Rows of pa queries against a list row-sharded over 8 tiles of 200
+    (not a multiple of 128) whose 1,000 uids end in UINT32_MAX, so that
+    tiles 5-7 hold none: bit for bit the reference's mask, and numpy's."""
+    rm, pm = meshes
+    rng = np.random.default_rng(100 + pa)
+    big = np.unique(np.concatenate([
+        rng.integers(0, U32, 1200, dtype=np.uint64).astype(np.uint32), [U32]]))[-1000:]
+    B = setops.pad_sorted(big, 8 * 200)
+    rows, LA = _sorted_rows(rng, big, 6, pa, _lens(rng, pa))
+    want = np.asarray(ref_mesh.sharded_rows_membership(
+        rm, jnp.asarray(rows), LA, _ref_sharded(rm, B), len(big)))
+    got = pmesh.sharded_rows_membership(pm, rows, LA, B, len(big)).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, np.isin(rows, big) & (np.arange(pa)[None, :] < LA[:, None]))
+    assert got[1, pa - 1] and shard_path()
+
+
+@pytest.mark.parametrize("tile", [1, 128, 129, 200, 1024])
+def test_sharded_membership_edges(meshes, shard_path, tile):
+    """a row-sharded over 8 tiles of `tile` with a window that fills
+    tiles 0-3, cuts tile 4 and leaves 5-7 empty, its last uid UINT32_MAX,
+    against a replicated b that holds UINT32_MAX: the reference's mask
+    and count, bit for bit, and numpy's."""
+    rm, pm = meshes
+    rng = np.random.default_rng(200 + tile)
+    la = 4 * tile + (tile + 1) // 2
+    a = np.unique(np.concatenate([
+        rng.integers(0, U32, 2 * la, dtype=np.uint64).astype(np.uint32), [U32]]))[-la:]
+    b = np.unique(np.concatenate([rng.choice(a, max(1, la // 2), replace=False), [U32],
+                                  rng.integers(0, U32, 300, dtype=np.uint64).astype(np.uint32)]))
+    A = setops.pad_sorted(a, 8 * tile)
+    B = setops.pad_sorted(b, len(b) + 5)
+    Ad = _ref_sharded(rm, A)
+    want = np.asarray(ref_mesh.sharded_membership(rm, Ad, la, jnp.asarray(B), len(b)))
+    got = pmesh.sharded_membership(pm, A, la, B, len(b)).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[:la], np.isin(a, b))
+    assert got[la - 1] and not got[la:].any()
+    cnt = int(pmesh.sharded_intersect_count(pm, A, la, B, len(b)))
+    assert cnt == int(ref_mesh.sharded_intersect_count(rm, Ad, la, jnp.asarray(B), len(b)))
+    assert cnt == int(np.isin(a, b).sum()) and shard_path()
 
 
 # ---------------------------------------------------------------------------
