@@ -25,7 +25,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 KERNELS = ("member_sweep", "vector_topk", "ivf_slab_scan", "setop_rows", "setop_merge",
-           "sq_distance")
+           "sq_distance", "kmeans_step")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

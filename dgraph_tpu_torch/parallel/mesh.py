@@ -35,7 +35,9 @@ Per-shard work runs on hand-written kernels on a card:
 - the top-k's distances on KV3 (`ops/sq_distance`, one pass over the
   shard), ranked by KV1 (`ops/vector_topk.topk`, on the finished
   distance) for the local and the global top-k;
-- the k-means step on `torch.matmul` (full float32) with `index_add_`.
+- the k-means step's GEMM on `torch.matmul` (full float32), then KV4
+  (`ops/kmeans_step`): the assignment, and each centroid's sum and count
+  in row order, with no float atomic.
 
 `make_mesh(device="cuda")` takes the visible cards and raises without
 one; `make_mesh(device="cpu")` takes `HOST_WIDTH` shards of the host (the
@@ -310,33 +312,25 @@ def sharded_topk(mesh: Mesh, V, valid, q, k: int):
 
 # ---------------------------------------------------------------------------
 # Distributed IVF k-means training: THE training step.
-# Data-parallel Lloyd iteration: local assign (matmul), local
-# segment-sum (index_add_), psum of (sums, counts), replicated update.
+# Data-parallel Lloyd iteration: local GEMM (matmul), local assign and
+# segment-sum (KV4), psum of (sums, counts), replicated update.
 # ---------------------------------------------------------------------------
 
 
 def sharded_kmeans_step(mesh: Mesh, X, valid, C) -> torch.Tensor:
     """One Lloyd step. X row-sharded (n, d); C replicated (c, d).
-    Returns updated replicated centroids."""
-    from dgraph_tpu_torch.ops import vector_topk
+    Returns updated replicated centroids. Each shard's GEMM is
+    `vector_topk.f32_matmul` (full float32), its assignment, sums and counts
+    KV4 (`kmeans_step.kmeans_step`)."""
+    from dgraph_tpu_torch.ops import kmeans_step
 
     X_tiles, valid_tiles = shard(mesh, X), shard(mesh, valid)
     C_on = _Replicated(C)
-    nclusters = C_on.x.shape[0]
     sums, cnts = [], []
     for Xt, vt in zip(X_tiles, valid_tiles):
-        Ct = C_on[Xt.device]
-        xsq = (Xt * Xt).sum(dim=1)
-        csq = (Ct * Ct).sum(dim=1)
-        d2 = xsq[:, None] - 2.0 * vector_topk.f32_matmul(Xt, Ct.T) + csq[None, :]
-        assign = torch.argmin(d2, dim=1)
-        w = vt.to(Xt.dtype)
-        sums.append(
-            Xt.new_zeros((nclusters, Xt.shape[1])).index_add_(
-                0, assign, Xt * w[:, None]
-            )
-        )
-        cnts.append(Xt.new_zeros((nclusters,)).index_add_(0, assign, w))
+        s, c, _ = kmeans_step.kmeans_step(Xt, vt.to(Xt.dtype), C_on[Xt.device])
+        sums.append(s)
+        cnts.append(c)
     s, c = _psum(mesh, sums), _psum(mesh, cnts)
     C0 = C_on[mesh.devices[0]]
     return torch.where(

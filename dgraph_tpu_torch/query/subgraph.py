@@ -2238,6 +2238,8 @@ class Executor:
             present_mask[i] = True
         import torch
 
+        from dgraph_tpu_torch.ops import vector_topk
+
         sc = np.where(
             present_mask,
             scores if o.desc else -scores,
@@ -2246,14 +2248,13 @@ class Executor:
         k = min(need, int(present_mask.sum()))
         if k == 0:
             return np.zeros((0,), np.uint64)
-        # a stable descending sort keeps lax.top_k's tie order (lower
-        # index first); torch.topk leaves the order of ties unspecified
-        order = torch.sort(
-            torch.from_numpy(sc).to(DISPATCHER.device),
-            descending=True,
-            stable=True,
-        ).indices
-        idx = order[:k].cpu().numpy()
+        # lax.top_k(sc, k) is KV1's ascending top-k of -sc: both order by
+        # the IEEE total order (NaN past inf, -0.0 below 0.0), ties to the
+        # lower index, and flipping the sign bit reverses that order
+        neg = (sc.view(np.uint32) ^ np.uint32(0x80000000)).view(np.float32)
+        row = torch.from_numpy(neg[None, :]).to(DISPATCHER.device)
+        _, idx = vector_topk.topk(row, k, "distance")
+        idx = idx[0].cpu().numpy()
         top = uids[idx]
         present = uids[present_mask]
         if len(top) < len(present):

@@ -413,18 +413,109 @@ def test_reference_cases_on_both_packages(case, runner, tmp_path, request, monke
 
 
 # the reference's test of K11, the executor's device top-k of a `first:`
-# ordering over a value variable (ROADMAP Queue 3 B)
+# ordering over a value variable (ROADMAP Queue 3 B), and cases of the
+# top-k itself on both packages (`_k11_case`)
 K11_CASES = cases("test_sort_paths", only=["test_device_topk_val_var_first"])
+K11_KINDS = ["signed_zeros", "nan", "inf", "ties", "past_one_pass", "offset_near_end",
+             "missing"]
+K11_EXTRA = [pytest.param(("k11", kind), id=f"k11::{kind}") for kind in K11_KINDS]
 
 
-@pytest.mark.parametrize("case", K11_CASES)
+def _one_pass_max_k():
+    """KV1's largest one-pass k, read from its source (the library that
+    answers `vector_topk.onepass_max_k` is built only on a card)."""
+    import os
+    import re
+
+    from dgraph_tpu_torch.ops import cuda_build
+
+    src = open(os.path.join(cuda_build.CSRC, "vector_topk.cu")).read()
+    return int(re.search(r"constexpr int kOnePassMaxK = (\d+);", src).group(1))
+
+
+def _k11_values(kind, rng):
+    """(values by uid index, None where missing; desc; first; offset) of
+    one K11 case over at least 4,096 uids."""
+    n = 6000
+    vals = list(rng.integers(-50, 50, n).astype(float))
+    desc, first, offset = True, 10, 0
+    nan = float("nan")
+    if kind == "signed_zeros":  # 0.0 above -0.0 in lax.top_k's order, either way
+        vals = [0.0 if i % 3 else -0.0 for i in range(n)]
+        vals[:40] = [0] * 40  # ints: -0.0 once negated for orderasc
+        desc, first = False, 200
+    elif kind == "nan":  # the sign of a negated NaN is what KV1's order reads
+        for i in rng.choice(n, 30, replace=False):
+            vals[i] = nan
+        vals[7] = -nan
+        desc, first = False, 50
+    elif kind == "inf":
+        for i in rng.choice(n, 20, replace=False):
+            vals[i] = float(rng.choice([np.inf, -np.inf]))
+        first = 40
+    elif kind == "ties":
+        vals = list(rng.integers(0, 3, n).astype(float))
+        first, offset = 100, 17
+    elif kind == "past_one_pass":  # KV1's radix regime
+        first = _one_pass_max_k() + 1000
+    elif kind == "offset_near_end":
+        first, offset = 7, n - 10
+    elif kind == "missing":  # missing values rank last
+        vals = [v if i % 4 else None for i, v in enumerate(vals)]
+        desc, first = False, 3000
+    return vals, desc, first, offset
+
+
+def _k11_case(kind):
+    """`Executor._order_uids_topk` of both packages on the same uids and
+    values: the answers equal, and their window equal to numpy's order
+    (the float32 scores by the IEEE total order, descending, ties to the
+    lower index); the port's through KV1's wrapper (here its plain
+    version)."""
+    from types import SimpleNamespace
+
+    from dgraph_tpu.query import subgraph as ref_subgraph
+    from dgraph_tpu_torch.ops import vector_topk
+    from dgraph_tpu_torch.query import subgraph
+
+    rng = np.random.default_rng(K11_KINDS.index(kind))
+    vals, desc, first, offset = _k11_values(kind, rng)
+    uids = np.unique(rng.integers(1, 1 << 40, 2 * len(vals), dtype=np.uint64))[: len(vals)]
+    var = {int(u): SimpleNamespace(value=v) for u, v in zip(uids, vals) if v is not None}
+    this = SimpleNamespace(val_vars={"v": var})
+    gq = SimpleNamespace(first=first, offset=offset, after=None)
+    o = SimpleNamespace(val_var="v", desc=desc)
+    want = ref_subgraph.Executor._order_uids_topk(this, gq, o, uids)
+    before = vector_topk.PLAIN_CALLS
+    got = subgraph.Executor._order_uids_topk(this, gq, o, uids)
+    assert vector_topk.PLAIN_CALLS - before == 1
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    present = np.array([v is not None for v in vals])
+    sc = np.where(present, np.array([0.0 if v is None else v for v in vals]), 0.0)
+    sc = np.where(present, sc if desc else -sc, -np.inf).astype(np.float32)
+    bits = sc.view(np.uint32).astype(np.int64)
+    key = np.where(bits >= 1 << 31, bits ^ 0xFFFFFFFF, bits | (1 << 31))  # total order
+    order = np.lexsort((np.arange(len(sc)), -key))
+    k = min(offset + first, int(present.sum()))
+    np.testing.assert_array_equal(got[:k], uids[order[:k]])
+
+
+@pytest.mark.parametrize("case", K11_CASES + K11_EXTRA)
 def test_device_topk_on_both_packages(case, runner, tmp_path, request, monkeypatch):  # noqa: F811
     """The reference's `test_device_topk_val_var_first` passes on both
     packages with equal answers, the port's on the forced device path,
     where `Executor._order_uids_topk` (K11, `REPAIRED`) takes its device
-    sort: 6,000 uids, above its 4,096 threshold."""
+    top-k: 6,000 uids, above its 4,096 threshold. The `k11::` cases call
+    the top-k of both packages on the same values (`_k11_case`): -0.0
+    against 0.0, NaN of either sign, +-inf, heavy ties, a k past KV1's
+    one-pass limit, an offset near the end and missing values."""
     from dgraph_tpu_torch.query import subgraph
 
+    monkeypatch.setattr(port.DISPATCHER, "device", torch.device("cpu"))
+    if case[0] == "k11":
+        _k11_case(case[1])
+        return
     taken = []
     real = subgraph.Executor._order_uids_topk
 
@@ -440,3 +531,24 @@ def test_device_topk_on_both_packages(case, runner, tmp_path, request, monkeypat
     monkeypatch.setattr(port.DISPATCHER, "device", torch.device("cpu"))
     run_both(runner, case, tmp_path, request)
     assert taken and all(taken)
+
+
+def test_order_reads_phase_on_cpu():
+    """chip_smoke's K11 reads (o) and (o2) (`order_reads`) on a host
+    Server over a graph of 4,160 level-2 nodes: each answer on the forced
+    device path equals the host path's and numpy's order, the executor
+    takes its top-k, and KV1's wrapper runs once a read at K11's shape,
+    (1, uids) with k = offset + first."""
+    from dgraph_tpu_torch.api.server import Server
+
+    import chip_smoke
+
+    g = chip_smoke.make_graph(fanout=8, pool=2000, roots=520)
+    server = Server(device="cpu")
+    server.slow_query_ms = float("inf")
+    chip_smoke.load_graph(server, g)
+    out = chip_smoke.order_reads(server, g, reps=1, log=lambda m: None)
+    assert out["launches"] == 2
+    assert sorted(out["captured"][0]) == [((1, 4160), 15, "distance", False),
+                                          ((1, 4160), 60, "distance", False)]
+    assert [len(chip_smoke.expected_order(g, n)) for n in ("o", "o2")] == [10, 20]

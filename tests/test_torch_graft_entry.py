@@ -130,8 +130,11 @@ def test_dryrun_multichip_without_jax():
 
 def test_graft_entry_phase_on_cpu():
     """chip_smoke's (13c) on the host: entry() against itself on the host
-    and numpy, and the dry run on MESH_SHARDS host shards."""
+    and numpy, and the dry run on MESH_SHARDS host shards, whose k-means
+    step hands KV4's wrapper one shard shape, held to its plain version."""
     out = chip_smoke.graft_entry("cpu", log=lambda m: None)
     assert out["entry"]["ids_equal_host"] == out["entry"]["rows"] == 32
     assert out["entry"]["ms"] is None  # no time without a card
     assert out["dryrun"]["s"] > 0
+    assert list(out["dryrun"]["kv4"]) == ["KV4 16x8 c=4"]
+    assert out["dryrun"]["kv4"]["KV4 16x8 c=4"]["mismatches"] == 0

@@ -54,6 +54,7 @@ PORTED = {
     "device.py",
     "ops/cuda_build.py",
     "ops/ivf_scan.py",
+    "ops/kmeans_step.py",
     "ops/member_sweep.py",
     "ops/setop_merge.py",
     "ops/setop_rows.py",

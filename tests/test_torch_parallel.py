@@ -555,7 +555,8 @@ def test_mesh_phase_on_cpu(monkeypatch):
     exact = chip_smoke.exact_topk(V, Q, 10)
     fns, (topk, _) = chip_smoke.mesh_functions("cpu", g, V, Q, exact, V[:1000].copy(), log=quiet)
     assert set(fns) == {"sharded_rows_membership", "sharded_membership",
-                        "sharded_intersect_count", "sharded_topk", "sharded_kmeans_step"}
+                        "sharded_intersect_count", "sharded_topk", "sharded_kmeans_step",
+                        "sharded_ivf_train"}
     assert fns["sharded_rows_membership"]["hits"] > 0
     assert fns["sharded_intersect_count"]["count"] == fns["sharded_membership"]["hits"] > 0
     assert fns["sharded_topk"]["launches"] == 0  # plain calls on the CPU

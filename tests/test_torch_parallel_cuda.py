@@ -10,12 +10,18 @@ jax, so they also run where only torch is installed:
 Masks and counts must be equal; KV1 ranks the finished distances on the
 card exactly as its plain version on the CPU, so top-k ids must be
 equal, with distances within RTOL (the card and the CPU sum each row's
-squares in another order); k-means within 1e-4 (`index_add_` adds with
-atomics on the card, in no fixed order). KV3 (`ops/sq_distance`) is held
+squares in another order); k-means within 1e-4 (the card's shards and the
+CPU's add their sums in other orders). KV3 (`ops/sq_distance`) is held
 to its plain version on the card within `sq_distance.TOL`, NaN and +inf
 where it has them, over widths on both sides of its float4 body and
 rows that are not 16-byte aligned; the mesh must launch K1 under its
-memberships and KV3 under its top-k.
+memberships and KV3 under its top-k. KV4 (`ops/kmeans_step`) is held to
+its plain version on the card: assignments and counts equal, sums within
+`kmeans_step.sums_tolerance` (the plain version adds with atomics), NaN
+where it has NaN, and a second launch equal bit for bit; over d = 1, 3,
+8, 768 and 769, c = 1, c > n, exact ties (the lower centroid), a shard
+of padding only, no rows, rows of a wider matrix, and 100,000 x 768
+against 256 centroids; the mesh's step launches it once a shard.
 """
 
 import numpy as np
@@ -23,7 +29,7 @@ import pytest
 import torch
 
 from dgraph_tpu_torch.models import vector
-from dgraph_tpu_torch.ops import member_sweep, sq_distance, vector_topk
+from dgraph_tpu_torch.ops import kmeans_step, member_sweep, sq_distance, vector_topk
 from dgraph_tpu_torch.parallel import mesh as pmesh
 from dgraph_tpu_torch.query import dispatch
 
@@ -200,3 +206,93 @@ def test_mesh_launches_k1_and_kv3(card_mesh):
     wd, wi = pmesh.sharded_topk(cpu, V, valid, torch.from_numpy(q), 10)
     np.testing.assert_array_equal(i.cpu().numpy(), wi.numpy())
     np.testing.assert_allclose(d.cpu().numpy(), wd.numpy(), rtol=RTOL)
+
+
+def _kv4_case(kind, d, n, c, seed):
+    rng = np.random.default_rng(seed)
+    w = (rng.random(n) > 0.1).astype(np.float32)
+    if kind == "ties":  # small integers: exact dots, norms and sums
+        X = rng.integers(-3, 4, (n, d)).astype(np.float32)
+        C = X[rng.choice(n, c, replace=False)].copy()
+        C[-1] = C[0]
+        return X, w, C
+    centers = rng.standard_normal((max(c, 1), d)).astype(np.float32) * 6.0
+    X = (centers[rng.integers(0, len(centers), n)]
+         + rng.standard_normal((n, d))).astype(np.float32)
+    C = centers[:c].copy()
+    if kind == "c_gt_n":
+        C = np.concatenate([C, rng.standard_normal((n + 7, d)).astype(np.float32) * 50.0])
+    elif kind == "padding":
+        w[:] = 0.0
+    elif kind == "nan" and n > 5:
+        X[[1, 5]] = np.nan
+    return X, w, C
+
+
+def _kv4_matches_plain(X, w, C):
+    dot = vector_topk.f32_matmul(X, C.T)
+    before = kmeans_step.LAUNCHES
+    got = kmeans_step.kmeans_step(X, w, C, dot)
+    again = kmeans_step.kmeans_step(X, w, C, dot)
+    want = kmeans_step.kmeans_step_plain(X, w, C, dot)
+    torch.cuda.synchronize()
+    assert kmeans_step.LAUNCHES - before == 2
+    assert torch.equal(got[2], want[2])
+    assert torch.equal(got[1], want[1])
+    tol = kmeans_step.sums_tolerance(X, w, want[2], C.shape[0])
+    assert torch.equal(torch.isnan(got[0]), torch.isnan(want[0]))
+    fin = torch.isfinite(want[0])
+    assert ((got[0] - want[0]).abs()[fin] <= tol[fin]).all()
+    for a, b in zip(got, again):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gauss", "ties", "c1", "c_gt_n", "padding", "nan"])
+@pytest.mark.parametrize("d", [1, 3, 8, 768, 769])
+def test_kmeans_step_kernel(card, d, kind):
+    """KV4 against its plain version on the card, on contiguous rows and
+    on rows of a wider matrix (a row stride of d + 3, off a 16-byte
+    boundary)."""
+    n, c = 3000, 1 if kind == "c1" else 6
+    X, w, C = _kv4_case(kind, d, n, c, seed=d * 10 + len(kind))
+    Xd, wd, Cd = (torch.from_numpy(a).to(card) for a in (X, w, C))
+    got = _kv4_matches_plain(Xd, wd, Cd)
+    wide = torch.zeros((n, d + 3), device=card)
+    wide[:, 1:1 + d] = Xd
+    _kv4_matches_plain(wide[:, 1:1 + d], wd, Cd)
+    if kind == "ties":
+        assert not (got[2] == c - 1).any()  # C[-1] == C[0]: ties go to 0
+    if kind == "padding":
+        assert not got[1].any()
+    if kind == "c_gt_n":
+        assert int((got[1] == 0).sum()) >= C.shape[0] - n  # more centroids than rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 31, 257, 100_000])
+def test_kmeans_step_kernel_sizes(card, n):
+    """No rows, fewer rows than a warp, a block and a row past it, and the
+    one-device mesh of emb_small (100,000 x 768 against 256)."""
+    d, c = (768, 256) if n == 100_000 else (8, 4)
+    X, w, C = _kv4_case("gauss", d, n, c, seed=n + 1)
+    sums, cnts, assign = _kv4_matches_plain(*(torch.from_numpy(a).to(card) for a in (X, w, C)))
+    assert assign.shape == (n,) and sums.shape == (c, d)
+    assert float(cnts.sum()) == float(w.sum())
+
+
+@pytest.mark.cuda
+def test_kmeans_step_launches_a_shard(card_mesh):
+    """The mesh's Lloyd step launches KV4 once a shard and equals the host
+    mesh's step within 1e-4; a repeat on the card is equal bit for bit."""
+    card4, cpu = card_mesh
+    X, _, C = _kv4_case("gauss", 96, 4000, 16, seed=9)
+    valid = np.arange(4000) < 3500  # the last shard: padding only
+    before = kmeans_step.LAUNCHES
+    got = pmesh.sharded_kmeans_step(card4, X, valid, torch.from_numpy(C))
+    assert kmeans_step.LAUNCHES - before == 4
+    again = pmesh.sharded_kmeans_step(card4, X, valid, torch.from_numpy(C))
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    want = pmesh.sharded_kmeans_step(cpu, X, valid, torch.from_numpy(C))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4, atol=1e-4)
