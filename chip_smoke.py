@@ -201,7 +201,9 @@ Phases, each of which fails the run when it fails:
      device times, and bounds; KV3 within its tolerance of its plain
      version on the shards; KV4 on every shard input the step gave it,
      assignments and counts equal to its plain version's, sums within
-     `kmeans_step.sums_tolerance`, a second launch equal bit for bit;
+     `kmeans_step.sums_tolerance`, a second launch equal bit for bit,
+     and KV4 so held and timed at one shard of `emb` (250,000 x 768
+     against the corpus's 256 centers);
      `sharded_ivf_train(mesh, emb_small, 256, iters=10)` against the
      plain one-device training (`ivf_train_plain`) within
      IVF_OBJECTIVE_RTOL and IVF_CENTROID_RTOL; then,
@@ -5877,7 +5879,7 @@ IVF_CENTROID_RTOL = 1e-2
 IVF_OBJECTIVE_RTOL = 1e-4
 
 
-def mesh_kmeans(device, X, row, kernels, iters=10, log=print):
+def mesh_kmeans(device, X, row, kernels, iters=10, emb=None, log=print):
     """(13b)'s k-means part on MESH_SHARDS shards of `device`: one Lloyd
     step of X from the corpus's own centers (no row near a tie, so only
     the sums' order differs) against the plain one-device step and the
@@ -5885,7 +5887,8 @@ def mesh_kmeans(device, X, row, kernels, iters=10, log=print):
     and the bound (`row`, `kernels`: mesh_functions' helpers); KV4 held
     to its plain version on every shard input the step gave it; then
     `sharded_ivf_train(mesh, X, 256, iters)` against `ivf_train_plain`.
-    Returns the KV4 checks by site."""
+    `emb`: KV4's results at other sites ({site: result}, a shard of emb),
+    listed with the step's. Returns the KV4 checks by site."""
     import torch
 
     from dgraph_tpu_torch.ops import kmeans_step
@@ -5913,7 +5916,7 @@ def mesh_kmeans(device, X, row, kernels, iters=10, log=print):
                                rtol=1e-4, atol=1e-4)):
         raise AssertionError(f"sharded_kmeans_step != the plain one-device step or the "
                              f"one-device mesh: {err}")
-    kv4 = served_kmeans(cap.by_shape, on_card, log=log)
+    kv4 = {**served_kmeans(cap.by_shape, on_card, log=log), **(emb or {})}
     n, d = X.shape
     c = C.shape[0]
     b_step, _ = kmeans_bound_ms(X, C)
@@ -6102,10 +6105,15 @@ def mesh_functions(device, g, V, Q, exact, X, log=print):
                                                       largest=False)),
         **kernels(topk_fn, {n: c // len(Q) for n, c in launched.items()}, kv1),
         kv3=served_sq_distance(sqcap.by_shape, on_card, log=log))
-    del Vd, valid, Vs, valids, sqcap
+    # KV4 at one shard of emb (250,000 x 768 on a card) against the
+    # corpus's 256 centers, before the corpus leaves the card
+    C = torch.from_numpy(corpus_centers(V.shape[1])).to(dev)
+    emb_kv4 = served_kmeans({(*Vs[0].shape, C.shape[0]): (Vs[0], valids[0].to(torch.float32), C)},
+                            on_card, log=log)
+    del Vd, valid, Vs, valids, sqcap, C
     captured = (cap.topk, cap.slabs)
 
-    mesh_kmeans(device, X, row, kernels, log=log)
+    mesh_kmeans(device, X, row, kernels, emb=emb_kv4, log=log)
     return res, captured
 
 

@@ -21,7 +21,11 @@ its plain version on the card: assignments and counts equal, sums within
 where it has NaN, and a second launch equal bit for bit; over d = 1, 3,
 8, 768 and 769, c = 1, c > n, exact ties (the lower centroid), a shard
 of padding only, no rows, rows of a wider matrix, and 100,000 x 768
-against 256 centroids; the mesh's step launches it once a shard.
+against 256 centroids; over a shard of many histogram blocks and a
+ragged last block: a centroid with 90% of the rows, exact ties equal to
+plain bit for bit, NaN rows near the end, and 8,200 centroids (the
+scatter without cursors in shared memory); the mesh's step launches it
+once a shard.
 """
 
 import numpy as np
@@ -217,8 +221,10 @@ def _kv4_case(kind, d, n, c, seed):
         C[-1] = C[0]
         return X, w, C
     centers = rng.standard_normal((max(c, 1), d)).astype(np.float32) * 6.0
-    X = (centers[rng.integers(0, len(centers), n)]
-         + rng.standard_normal((n, d))).astype(np.float32)
+    labels = rng.integers(0, len(centers), n)
+    if kind == "dominant":  # about 90% of the rows near centroid 0
+        labels[rng.random(n) < 0.9] = 0
+    X = (centers[labels] + rng.standard_normal((n, d))).astype(np.float32)
     C = centers[:c].copy()
     if kind == "c_gt_n":
         C = np.concatenate([C, rng.standard_normal((n + 7, d)).astype(np.float32) * 50.0])
@@ -280,6 +286,50 @@ def test_kmeans_step_kernel_sizes(card, n):
     sums, cnts, assign = _kv4_matches_plain(*(torch.from_numpy(a).to(card) for a in (X, w, C)))
     assert assign.shape == (n,) and sums.shape == (c, d)
     assert float(cnts.sum()) == float(w.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gauss", "dominant", "ties", "nan_late"])
+@pytest.mark.parametrize("d", [768, 769])
+def test_kmeans_step_kernel_blocks(card, d, kind):
+    """KV4 on a shard of 53 histogram blocks and a ragged last one, on
+    contiguous rows and on rows of a wider matrix: Gaussian clusters; one
+    centroid holding about 90% of the rows, in every block; exact ties
+    (small integers: every product and sum exact, so the sums equal
+    plain's bit for bit); NaN rows in the last two blocks."""
+    c, n = 32, 13_658
+    X, w, C = _kv4_case("gauss" if kind == "nan_late" else kind, d, n, c, seed=d + len(kind))
+    if kind == "nan_late":
+        X[[n - 300, n - 7]] = np.nan
+    Xd, wd, Cd = (torch.from_numpy(a).to(card) for a in (X, w, C))
+    wide = torch.zeros((n, d + 3), device=card)
+    wide[:, 1:1 + d] = Xd
+    for rows in (Xd, wide[:, 1:1 + d]):
+        got = _kv4_matches_plain(rows, wd, Cd)
+        if kind == "ties":
+            want = kmeans_step.kmeans_step_plain(rows, wd, Cd, vector_topk.f32_matmul(rows, Cd.T))
+            assert torch.equal(got[0], want[0])
+        if kind == "dominant":
+            assert float(got[1][0]) > 0.85 * float(w.sum())
+        if kind == "nan_late":
+            assert int(got[2][n - 300]) == 0 and bool(torch.isnan(got[0][0]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 3000, 12_305])
+def test_kmeans_step_kernel_many_centroids(card, n):
+    """KV4 against 8,200 centroids (over the 8,192 whose cursors the
+    scatter keeps in shared memory), 16 of them near the rows and the
+    rest far: an empty shard, a shard of 12 histogram blocks and one of
+    49, most centroids with no row."""
+    d = 8
+    X, w, C = _kv4_case("gauss", d, n, 16, seed=n + 5)
+    far = np.random.default_rng(n).standard_normal((8200 - 16, d)).astype(np.float32) * 50.0
+    Cd = torch.from_numpy(np.concatenate([C, far])).to(card)
+    sums, cnts, assign = _kv4_matches_plain(torch.from_numpy(X).to(card),
+                                            torch.from_numpy(w).to(card), Cd)
+    assert sums.shape == (8200, d) and float(cnts.sum()) == float(w.sum())
+    assert not cnts[16:].any()
 
 
 @pytest.mark.cuda
