@@ -64,7 +64,7 @@ from dgraph_tpu_torch.serving.digest import DIGESTS
 from dgraph_tpu_torch.serving.resultcache import hit_response
 from dgraph_tpu_torch.storage.kv import KV, open_kv
 from dgraph_tpu_torch.types.types import TypeID, Val
-from dgraph_tpu_torch.utils import observe
+from dgraph_tpu_torch.utils import hosttrace, observe
 from dgraph_tpu_torch.utils.cmsketch import StatsHolder, feed_stats
 from dgraph_tpu_torch.utils.observe import METRICS, TRACER, profile_scope
 from dgraph_tpu_torch.worker.groupcommit import (
@@ -318,6 +318,9 @@ class Server:
         self._bootstrap_schema()
         if data_dir is not None:
             self._load_persisted_state()
+        if config.get("TRACE"):
+            # the collector's pauses, published at the end of every read
+            hosttrace.install_gc_hook()
         # warm the native C++ layer off the request path (first import
         # compiles codec.cpp; without this the first query/rollup pays it)
         threading.Thread(
@@ -1192,239 +1195,254 @@ class Server:
         attaches the structured plan tree as `extensions.plan`. Capture
         is observation-only: response `data` bytes are identical with
         the flag on or off (golden-enforced, tests/test_explain.py)."""
-        t_begin = time.monotonic()
+        # one span a stage under the read's root `query`: `parse`, `admit`
+        # (admission, ACL, audit and the read ts) and `execute` (the
+        # result-cache probe to the response, `encode` inside it);
+        # server_latency is read from their durations
         # info is now always collected: the digest store records the
         # plan-cache outcome per shape, not just EXPLAIN requests (the
         # fill is three dict writes — observation-only either way)
         parse_info: dict = {}
         digested = False  # one digest record per query, on every path
-        try:
-            # plan cache: repeated query shapes skip parse entirely
-            blocks, shape, literals = self.serving.parse(
-                q, variables, info=parse_info
-            )
-        except Exception:
-            # unparseable queries accrue to the per-ns `other` bucket —
-            # a flood of malformed text is an operator-visible shape
-            if DIGESTS.enabled():
-                DIGESTS.record(
-                    keys.GALAXY_NS, None,
-                    time.monotonic() - t_begin, error=True,
-                )
-            raise
-        t_parsed = time.monotonic()
-        # admission gate BEFORE the read-ts allocation: a shed must be
-        # FAST and side-effect-free — under overload the oracle's
-        # applied-barrier wait is exactly where queries queue, and a
-        # request that will be refused must neither join that queue
-        # nor lease a timestamp
-        ticket = self.serving.admit(shape, blocks)
+        ticket = None
         slow = False
         completed = False  # clean, untruncated execution
+        ns = keys.GALAXY_NS
+        shape = None
         try:
-            ns = keys.GALAXY_NS
-            allowed = None
-            user = ""
-            if self.acl is not None:
+            with TRACER.span("query", ns=ns) as root:
                 try:
-                    if access_jwt is None:
-                        raise AclError("no access token (ACL enabled)")
-                    claims = self.acl.claims(access_jwt)
-                    user = claims.get("userid", "")
-                    ns = int(claims.get("namespace", 0))
-                    self.acl.authorize_preds(
-                        access_jwt, _query_preds(blocks), READ,
-                        claims=claims,
-                    )
-                    allowed = self.acl.readable_preds(claims)
+                    # plan cache: repeated query shapes skip parse entirely
+                    with TRACER.span("parse") as parse_span:
+                        blocks, shape, literals = self.serving.parse(
+                            q, variables, info=parse_info
+                        )
                 except Exception:
-                    self._audit("query", user=user, body=q, status="DENIED")
+                    # unparseable queries accrue to the per-ns `other`
+                    # bucket — a flood of malformed text is an
+                    # operator-visible shape
+                    if DIGESTS.enabled():
+                        DIGESTS.record(
+                            keys.GALAXY_NS, None, root.seconds, error=True,
+                        )
                     raise
-            self._audit("query", user=user, ns=ns, body=q)
-            deadline = (
-                time.monotonic() + timeout_ms / 1e3
-                if timeout_ms is not None
-                else None
-            )
-            degrade_deadline = None
-            if ticket.degrade:
-                # saturated: run under a bounded budget and return a
-                # partial/degraded response on exhaustion instead of
-                # queueing at full budget (the partial-result shape)
-                degrade_deadline = (
-                    time.monotonic() + self.serving.degrade_budget_s()
-                )
-                deadline = (
-                    degrade_deadline
-                    if deadline is None
-                    else min(deadline, degrade_deadline)
-                )
-            truncated = False
-            # snapshot-watermark read (ref worker/oracle MaxAssigned):
-            # `_snapshot_ts` is published only after a commit's deltas
-            # are written, and advances in commit-ts order — so a read
-            # AT the watermark sees a complete store without leasing a
-            # fresh ts and waiting out the apply barrier. Under mixed
-            # traffic that wait serialized every read behind the write
-            # pipeline's in-flight window; an in-flight (unacked)
-            # commit is legitimately excluded from the snapshot. 0 =
-            # nothing committed yet: fall back to a fresh barrier-
-            # waited lease.
-            # the watermark is sampled ONCE and reused for BOTH the
-            # read ts and the result-cache key: re-reading
-            # _snapshot_ts at key time would let a commit landing in
-            # between cache watermark-N bytes under the watermark-N+1
-            # key (a one-line TOCTOU that breaks the never-stale
-            # proof)
-            wm = self._snapshot_ts
-            ts = (
-                read_ts
-                if read_ts is not None
-                else (wm or self.zero.read_ts())
-            )
-            t_assigned = time.monotonic()
-            # snapshot-keyed result reuse (serving/resultcache.py):
-            # watermark reads with no ACL are a pure function of
-            # (shape, literals, vars, ns, watermark) — the
-            # micro-batcher's snapshot argument (serving/microbatch.py)
-            # — so the whole response's wire bytes can be
-            # served from the LRU. Caller-pinned read_ts never
-            # caches; EXPLAIN queries always execute but record the
-            # would-hit tier in the plan.
-            rc_key = None
-            rc_probe = False
-            raw_hit = None
-            if read_ts is None and self.acl is None:
-                rc_key, raw_hit, rc_probe = self.serving.result_probe(
-                    shape, literals, variables, ns, wm, debug,
-                )
-            if raw_hit is not None:
-                METRICS.inc("num_queries")
-                t_done = time.monotonic()
-                # hits are SERVED traffic: they must land in the
-                # latency histogram the SLO/health surface reads. The
-                # sample is the PROCESSING span (post-assign), the
-                # same span the miss path's METRICS.timer covers — a
-                # hit recording full wall time would make hit samples
-                # incomparable with miss samples in one histogram
-                METRICS.observe(
-                    "query_latency_seconds", t_done - t_assigned
-                )
-                # shape stays out of the cost EWMA (finally passes
-                # shape only when `completed`): a hit's latency
-                # describes the cache, not the shape's execution cost
-                # the admission gate estimates
-                if DIGESTS.enabled():
-                    DIGESTS.record(
-                        ns, shape, t_done - t_begin,
-                        nbytes=len(raw_hit),
-                        plan_hit=bool(parse_info.get("hit")),
-                        result_hit=True,
+                with TRACER.span("admit") as admit_span:
+                    # admission gate BEFORE the read-ts allocation: a shed
+                    # must be FAST and side-effect-free — under overload
+                    # the oracle's applied-barrier wait is exactly where
+                    # queries queue, and a request that will be refused
+                    # must neither join that queue nor lease a timestamp
+                    ticket = self.serving.admit(shape, blocks)
+                    allowed = None
+                    user = ""
+                    if self.acl is not None:
+                        try:
+                            if access_jwt is None:
+                                raise AclError("no access token (ACL enabled)")
+                            claims = self.acl.claims(access_jwt)
+                            user = claims.get("userid", "")
+                            ns = int(claims.get("namespace", 0))
+                            self.acl.authorize_preds(
+                                access_jwt, _query_preds(blocks), READ,
+                                claims=claims,
+                            )
+                            allowed = self.acl.readable_preds(claims)
+                        except Exception:
+                            self._audit(
+                                "query", user=user, body=q, status="DENIED"
+                            )
+                            raise
+                    self._audit("query", user=user, ns=ns, body=q)
+                    deadline = (
+                        time.monotonic() + timeout_ms / 1e3
+                        if timeout_ms is not None
+                        else None
                     )
-                    digested = True
-                observe.note_tenant("query", ns, t_done - t_assigned)
-                return hit_response(
-                    raw_hit, want,
-                    parsing_ns=int((t_parsed - t_begin) * 1e9),
-                    assign_ns=int((t_assigned - t_parsed) * 1e9),
-                    processing_ns=int((t_done - t_assigned) * 1e9),
-                    watermark=wm,
-                )
-            cache_base = self._plan_cache_tiers() if debug else None
-            with TRACER.span("query", ns=ns) as root, \
-                    profile_scope(debug=debug) as prof, \
-                    METRICS.timer("query_latency_seconds"):
-                try:
-                    cache = LocalCache(self.kv, ts, mem=self.mem)
-                    # caller-pinned read_ts never coalesces: the
-                    # snapshot-watermark argument only covers fresh
-                    # engine-allocated timestamps (which waited on the
-                    # applied barrier)
-                    out = self._query_parsed(
-                        blocks,
-                        cache,
-                        ns,
-                        allowed,
-                        deadline=deadline,
-                        batcher=(
-                            self.serving.batcher_for(cache)
-                            if read_ts is None
-                            else None
-                        ),
-                        want=want,
+                    degrade_deadline = None
+                    if ticket.degrade:
+                        # saturated: run under a bounded budget and return
+                        # a partial/degraded response on exhaustion
+                        # instead of queueing at full budget (the
+                        # partial-result shape)
+                        degrade_deadline = (
+                            time.monotonic() + self.serving.degrade_budget_s()
+                        )
+                        deadline = (
+                            degrade_deadline
+                            if deadline is None
+                            else min(deadline, degrade_deadline)
+                        )
+                    truncated = False
+                    # snapshot-watermark read (ref worker/oracle
+                    # MaxAssigned): `_snapshot_ts` is published only after
+                    # a commit's deltas are written, and advances in
+                    # commit-ts order — so a read AT the watermark sees a
+                    # complete store without leasing a fresh ts and
+                    # waiting out the apply barrier. Under mixed traffic
+                    # that wait serialized every read behind the write
+                    # pipeline's in-flight window; an in-flight (unacked)
+                    # commit is legitimately excluded from the snapshot.
+                    # 0 = nothing committed yet: fall back to a fresh
+                    # barrier-waited lease.
+                    # the watermark is sampled ONCE and reused for BOTH
+                    # the read ts and the result-cache key: re-reading
+                    # _snapshot_ts at key time would let a commit landing
+                    # in between cache watermark-N bytes under the
+                    # watermark-N+1 key (a one-line TOCTOU that breaks the
+                    # never-stale proof)
+                    wm = self._snapshot_ts
+                    ts = (
+                        read_ts
+                        if read_ts is not None
+                        else (wm or self.zero.read_ts())
                     )
-                except QueryBudgetError:
-                    # only the degraded-admission budget converts a
-                    # deadline trip into a partial result; semantic
-                    # errors (different type) and a tighter CLIENT
-                    # timeout (trips before the degrade budget) raise
-                    if (
-                        degrade_deadline is None
-                        or time.monotonic() < degrade_deadline
-                    ):
-                        raise
-                    out = {"data": {}}
-                    truncated = True
-            METRICS.inc("num_queries")
-            t_done = time.monotonic()
-            took_ms = (t_done - t_begin) * 1e3
-            ext = out.setdefault("extensions", {})
-            # encoding happens inside _query_parsed; it reports the
-            # wire-bytes production time through the profile and the
-            # processing component gives it up so the parts still sum
-            # to total_ns with no unattributed gap (the dict-API
-            # parse-back, when present, stays inside processing and is
-            # itemized as profile.encode.parse_ns)
-            enc_ns = int(prof.encode.get("encode_ns", 0))
-            total_ns = int((t_done - t_begin) * 1e9)
-            ext["server_latency"] = {
-                # new order: parse -> admission/ACL/ts -> execute; the
-                # admission + ACL + audit time rides in the assign
-                # component
-                "parsing_ns": int((t_parsed - t_begin) * 1e9),
-                "assign_timestamp_ns": int((t_assigned - t_parsed) * 1e9),
-                "processing_ns": max(
-                    int((t_done - t_assigned) * 1e9) - enc_ns, 0
-                ),
-                "encoding_ns": enc_ns,
-                "total_ns": total_ns,
-            }
-            if total_ns > 0 and prof.encode:
-                prof.encode["share"] = round(enc_ns / total_ns, 4)
-            ext["profile"] = prof.to_dict()
-            if prof.plan is not None:
-                prof.plan.plan_cache = parse_info or {}
-                prof.plan.admission = {
-                    "enabled": self.serving.admission.enabled(),
-                    "cost": round(ticket.cost, 3),
-                    "degrade": ticket.degrade,
+                root.attrs["ns"] = ns
+                stages: dict = {}
+                with TRACER.span("execute") as execute_span:
+                    # snapshot-keyed result reuse (serving/resultcache.py):
+                    # watermark reads with no ACL are a pure function of
+                    # (shape, literals, vars, ns, watermark) — the
+                    # micro-batcher's snapshot argument
+                    # (serving/microbatch.py) — so the whole response's
+                    # wire bytes can be served from the LRU. Caller-pinned
+                    # read_ts never caches; EXPLAIN queries always execute
+                    # but record the would-hit tier in the plan.
+                    rc_key = None
+                    rc_probe = False
+                    raw_hit = None
+                    if read_ts is None and self.acl is None:
+                        rc_key, raw_hit, rc_probe = self.serving.result_probe(
+                            shape, literals, variables, ns, wm, debug,
+                        )
+                    if raw_hit is None:
+                        cache_base = self._plan_cache_tiers() if debug else None
+                        with profile_scope(debug=debug) as prof, \
+                                METRICS.timer("query_latency_seconds"):
+                            try:
+                                cache = LocalCache(self.kv, ts, mem=self.mem)
+                                # caller-pinned read_ts never coalesces:
+                                # the snapshot-watermark argument only
+                                # covers fresh engine-allocated timestamps
+                                # (which waited on the applied barrier)
+                                out = self._query_parsed(
+                                    blocks,
+                                    cache,
+                                    ns,
+                                    allowed,
+                                    deadline=deadline,
+                                    batcher=(
+                                        self.serving.batcher_for(cache)
+                                        if read_ts is None
+                                        else None
+                                    ),
+                                    want=want,
+                                    stages=stages,
+                                )
+                            except QueryBudgetError:
+                                # only the degraded-admission budget
+                                # converts a deadline trip into a partial
+                                # result; semantic errors (different type)
+                                # and a tighter CLIENT timeout (trips
+                                # before the degrade budget) raise
+                                if (
+                                    degrade_deadline is None
+                                    or time.monotonic() < degrade_deadline
+                                ):
+                                    raise
+                                out = {"data": {}}
+                                truncated = True
+                    METRICS.inc("num_queries")
+                parse_ns = parse_span.duration_ns
+                assign_ns = admit_span.duration_ns
+                execute_ns = execute_span.duration_ns
+                total_ns = parse_ns + assign_ns + execute_ns
+                if raw_hit is not None:
+                    # hits are SERVED traffic: they must land in the
+                    # latency histogram the SLO/health surface reads. The
+                    # sample is the execute stage, the same stage the
+                    # miss path's METRICS.timer covers — a hit recording
+                    # full wall time would make hit samples incomparable
+                    # with miss samples in one histogram
+                    METRICS.observe(
+                        "query_latency_seconds", execute_span.seconds
+                    )
+                    # shape stays out of the cost EWMA (finally passes
+                    # shape only when `completed`): a hit's latency
+                    # describes the cache, not the shape's execution cost
+                    # the admission gate estimates
+                    if DIGESTS.enabled():
+                        DIGESTS.record(
+                            ns, shape, total_ns / 1e9,
+                            nbytes=len(raw_hit),
+                            plan_hit=bool(parse_info.get("hit")),
+                            result_hit=True,
+                        )
+                        digested = True
+                    observe.note_tenant("query", ns, execute_span.seconds)
+                    return hit_response(
+                        raw_hit, want,
+                        parsing_ns=parse_ns,
+                        assign_ns=assign_ns,
+                        processing_ns=execute_ns,
+                        watermark=wm,
+                    )
+                ext = out.setdefault("extensions", {})
+                # encoding happens inside _query_parsed, in its `encode`
+                # span; the processing component gives it up so the parts
+                # still sum to total_ns (the dict-API parse-back, when
+                # present, stays inside processing and is itemized as
+                # profile.encode.parse_ns)
+                enc_ns = min(stages.get("encode_ns", 0), execute_ns)
+                ext["server_latency"] = {
+                    # new order: parse -> admission/ACL/ts -> execute; the
+                    # admission + ACL + audit time rides in the assign
+                    # component
+                    "parsing_ns": parse_ns,
+                    "assign_timestamp_ns": assign_ns,
+                    "processing_ns": execute_ns - enc_ns,
+                    "encoding_ns": enc_ns,
+                    "total_ns": total_ns,
                 }
-                if cache_base is not None:
-                    now_tiers = self._plan_cache_tiers()
-                    prof.plan.cache = {
-                        k: now_tiers[k] - cache_base.get(k, 0)
-                        for k in now_tiers
+                if total_ns > 0 and prof.encode:
+                    prof.encode["share"] = round(
+                        int(prof.encode.get("encode_ns", 0)) / total_ns, 4
+                    )
+                ext["profile"] = prof.to_dict()
+                if prof.plan is not None:
+                    prof.plan.plan_cache = parse_info or {}
+                    prof.plan.admission = {
+                        "enabled": self.serving.admission.enabled(),
+                        "cost": round(ticket.cost, 3),
+                        "degrade": ticket.degrade,
                     }
-                prof.plan.result_cache = {
-                    "enabled": self.serving.results.capacity() > 0,
-                    "eligible": rc_key is not None,
-                    "would_hit": bool(rc_probe),
-                    "watermark": int(self._snapshot_ts),
-                }
-                prof.plan.meta = {
-                    "read_ts": int(ts),
-                    "snapshot_watermark": int(self._snapshot_ts),
-                    "wall_ns": total_ns,
-                }
-                ext["plan"] = prof.plan.to_dict()
-            if root.trace_id:
-                ext["trace_id"] = f"{root.trace_id:032x}"
-            if ticket.degrade:
-                ext["degraded_admission"] = True
-            if truncated:
-                METRICS.inc("degraded_queries_total")
-                ext["degraded"] = True
-                ext["partial"] = True
+                    if cache_base is not None:
+                        now_tiers = self._plan_cache_tiers()
+                        prof.plan.cache = {
+                            k: now_tiers[k] - cache_base.get(k, 0)
+                            for k in now_tiers
+                        }
+                    prof.plan.result_cache = {
+                        "enabled": self.serving.results.capacity() > 0,
+                        "eligible": rc_key is not None,
+                        "would_hit": bool(rc_probe),
+                        "watermark": int(self._snapshot_ts),
+                    }
+                    prof.plan.meta = {
+                        "read_ts": int(ts),
+                        "snapshot_watermark": int(self._snapshot_ts),
+                        "wall_ns": total_ns,
+                    }
+                    ext["plan"] = prof.plan.to_dict()
+                if root.trace_id:
+                    ext["trace_id"] = f"{root.trace_id:032x}"
+                if ticket.degrade:
+                    ext["degraded_admission"] = True
+                if truncated:
+                    METRICS.inc("degraded_queries_total")
+                    ext["degraded"] = True
+                    ext["partial"] = True
+            # the read's root span has ended: the slow-query record below
+            # holds its whole local tree
             if DIGESTS.enabled():
                 data = out.get("data")
                 rows = (
@@ -1437,7 +1455,7 @@ class Server:
                     else 0
                 )
                 DIGESTS.record(
-                    ns, shape, t_done - t_begin,
+                    ns, shape, total_ns / 1e9,
                     rows=rows,
                     nbytes=int(prof.encode.get("bytes", 0)),
                     error=truncated,
@@ -1450,13 +1468,13 @@ class Server:
                     ),
                 )
                 digested = True
-            observe.note_tenant("query", ns, t_done - t_assigned)
+            observe.note_tenant("query", ns, execute_span.seconds)
             # structured slow-query log (ref x/log.go LogSlowOperation,
             # edgraph/server.go:1448): force-sample + bounded JSONL —
             # the digest shape key rides along so a slow entry joins
             # its aggregate row in /debug/digests
             slow = observe.maybe_log_slow(
-                "query", q, took_ms, root,
+                "query", q, total_ns / 1e6, root,
                 extra={"ns": ns, "shape": shape},
                 threshold_ms=self.slow_query_ms,
             )
@@ -1467,23 +1485,23 @@ class Server:
                     self.serving.results.put(rc_key, raw)
             return out
         finally:
-            # a query that entered execution but never reached a digest
-            # record (ACL denial, semantic error, client deadline)
-            # still counts against its shape — errors are a first-class
-            # digest column
-            if not digested and DIGESTS.enabled():
-                DIGESTS.record(
-                    ns, shape, time.monotonic() - t_begin, error=True,
+            if ticket is not None:
+                # a query that entered execution but never reached a
+                # digest record (ACL denial, semantic error, client
+                # deadline) still counts against its shape — errors are
+                # a first-class digest column
+                if not digested and DIGESTS.enabled():
+                    DIGESTS.record(ns, shape, root.seconds, error=True)
+                # only clean completions feed the shape cost EWMA: a
+                # truncated/denied/failed run's latency describes the
+                # failure, not the shape
+                self.serving.finish(
+                    ticket,
+                    shape if completed else None,
+                    root.seconds * 1e3,
+                    slow=slow,
                 )
-            # only clean completions feed the shape cost EWMA: a
-            # truncated/denied/failed run's latency describes the
-            # failure, not the shape
-            self.serving.finish(
-                ticket,
-                shape if completed else None,
-                (time.monotonic() - t_begin) * 1e3,
-                slow=slow,
-            )
+            hosttrace.publish_gc()
 
     def query_rdf(
         self,
@@ -1560,7 +1578,10 @@ class Server:
         deadline=None,
         batcher=None,
         want: str = "dict",
+        stages: Optional[dict] = None,
     ) -> dict:
+        """Execute parsed blocks and encode the answer. `stages`, where
+        given, receives the `encode` span's duration as `encode_ns`."""
         if len(blocks) == 1 and blocks[0].attr == "__schema__":
             return self._schema_query(blocks[0])
         ex = Executor(
@@ -1574,9 +1595,12 @@ class Server:
             batcher=batcher,
         )
         nodes = ex.process(blocks)
-        data, enc_stats = encode_response_data(
-            nodes, val_vars=ex.val_vars, schema=self.schema, want=want
-        )
+        with TRACER.span("encode") as encode_span:
+            data, enc_stats = encode_response_data(
+                nodes, val_vars=ex.val_vars, schema=self.schema, want=want
+            )
+        if stages is not None:
+            stages["encode_ns"] = encode_span.duration_ns
         prof = observe.current_profile()
         if prof is not None:
             prof.encode.update(enc_stats)

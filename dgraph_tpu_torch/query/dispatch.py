@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import threading
 from collections import OrderedDict
+from contextlib import contextmanager
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -46,6 +47,7 @@ from dgraph_tpu_torch.codec import uidpack
 from dgraph_tpu_torch.codec.uidpack import join_segments, split_segments
 from dgraph_tpu_torch.device import resolve_device
 from dgraph_tpu_torch.ops import member_sweep, packed_setops, setop_merge, setop_rows, setops
+from dgraph_tpu_torch.utils.observe import TRACER
 from dgraph_tpu_torch.x import config
 
 # Below this much total work, host kernels win. Setting 0 means "always
@@ -78,6 +80,32 @@ def _planner_enabled() -> bool:
     """The cost-based planner's knob (query/planner.py), read here
     without importing the planner."""
     return bool(config.get("QUERY_PLANNER"))
+
+
+# whether this thread is inside a set op's route span (`_route`)
+_IN_ROUTE = threading.local()
+
+
+@contextmanager
+def _route(op: str, host: bool, words: int, min_total: int):
+    """The route a set op took, as a span over the branch that runs it:
+    `setop_host` or `setop_device`, with the op, the operand words the
+    choice weighed, their bytes (u64 ids) and the crossover. The caller
+    names the path in the yielded attributes' `route`. Only the
+    outermost set op of a thread opens one: the dispatcher's calls to
+    itself run inside it and count once."""
+    if getattr(_IN_ROUTE, "on", False):
+        yield {}
+        return
+    _IN_ROUTE.on = True
+    try:
+        with TRACER.span(
+            "setop_host" if host else "setop_device", op=op, route="",
+            words=int(words), bytes=8 * int(words), min_total=int(min_total),
+        ) as sp:
+            yield sp.attrs
+    finally:
+        _IN_ROUTE.on = False
 
 
 def _pow2(n: int) -> int:
@@ -499,44 +527,51 @@ class SetOpDispatcher:
         if not rows:
             return []
         total = sum(len(r) for r in rows) + len(b)
-        if self._host(total):
-            if op in ("intersect", "difference") and len(rows) > 4:
-                # vectorized host path: ONE searchsorted over the
-                # concatenated rows beats per-row native calls (ctypes
-                # marshaling dominates at small sizes)
-                b64 = np.asarray(b, np.uint64)
-                cat = np.concatenate(
-                    [np.asarray(r, np.uint64) for r in rows]
-                )
-                if len(b64) and len(cat):
-                    idx = np.searchsorted(b64, cat)
-                    idx_c = np.minimum(idx, len(b64) - 1)
-                    mask = b64[idx_c] == cat
-                else:
-                    mask = np.zeros(len(cat), bool)
-                if op == "difference":
-                    mask = ~mask
-                out = []
-                off = 0
-                for r in rows:
-                    n = len(r)
-                    out.append(cat[off : off + n][mask[off : off + n]])
-                    off += n
-                return out
-            return [_np_op(op, r, b) for r in rows]
-        if op in ("intersect", "difference") and self._shard_gate(b):
-            got = self._run_rows_sharded(op, rows, b, b_token)
-            if got is not None:
-                return got
-        if op == "union":
-            return self.run_pairs(op, [(r, b) for r in rows])
-        from dgraph_tpu_torch.query import ragged
+        host = self._host(total)
+        with _route(op, host, total, self._min_total()) as attrs:
+            if host:
+                if op in ("intersect", "difference") and len(rows) > 4:
+                    # vectorized host path: ONE searchsorted over the
+                    # concatenated rows beats per-row native calls (ctypes
+                    # marshaling dominates at small sizes)
+                    attrs["route"] = "host_vectorised"
+                    b64 = np.asarray(b, np.uint64)
+                    cat = np.concatenate(
+                        [np.asarray(r, np.uint64) for r in rows]
+                    )
+                    if len(b64) and len(cat):
+                        idx = np.searchsorted(b64, cat)
+                        idx_c = np.minimum(idx, len(b64) - 1)
+                        mask = b64[idx_c] == cat
+                    else:
+                        mask = np.zeros(len(cat), bool)
+                    if op == "difference":
+                        mask = ~mask
+                    out = []
+                    off = 0
+                    for r in rows:
+                        n = len(r)
+                        out.append(cat[off : off + n][mask[off : off + n]])
+                        off += n
+                    return out
+                attrs["route"] = "host_native"
+                return [_np_op(op, r, b) for r in rows]
+            if op in ("intersect", "difference") and self._shard_gate(b):
+                attrs["route"] = "sharded"
+                got = self._run_rows_sharded(op, rows, b, b_token)
+                if got is not None:
+                    return got
+            if op == "union":
+                attrs["route"] = "pairs"
+                return self.run_pairs(op, [(r, b) for r in rows])
+            from dgraph_tpu_torch.query import ragged
 
-        flat, offs = ragged.pack_rows([np.asarray(r, np.uint64) for r in rows])
-        res, res_offs = self._vs_one_device(
-            op, flat, offs, np.asarray(b, np.uint64), row_tokens, b_token
-        )
-        return ragged.row_views(res, res_offs)
+            attrs["route"] = "rows"
+            flat, offs = ragged.pack_rows([np.asarray(r, np.uint64) for r in rows])
+            res, res_offs = self._vs_one_device(
+                op, flat, offs, np.asarray(b, np.uint64), row_tokens, b_token
+            )
+            return ragged.row_views(res, res_offs)
 
     def _shard_gate(self, b) -> bool:
         """Whether a shared operand is giant enough to row-shard over the
@@ -716,18 +751,23 @@ class SetOpDispatcher:
         if op in ("difference", "union") and not b64.size:
             return flat, offs
         total = flat.size + b64.size
-        if self._host(total) and op in ("intersect", "difference") and flat.size:
-            idx = np.minimum(
-                np.searchsorted(b64, flat), b64.size - 1
-            )
-            mask = b64[idx] == flat
-            if op == "difference":
-                mask = ~mask
-            return ragged.apply_mask(flat, offs, mask)
+        host = self._host(total)
+        if host and op in ("intersect", "difference") and flat.size:
+            with _route(op, True, total, self._min_total()) as attrs:
+                attrs["route"] = "host_vectorised"
+                idx = np.minimum(
+                    np.searchsorted(b64, flat), b64.size - 1
+                )
+                mask = b64[idx] == flat
+                if op == "difference":
+                    mask = ~mask
+                return ragged.apply_mask(flat, offs, mask)
         if op in ("intersect", "difference") and not self._shard_gate(b64):
-            return self._vs_one_device(
-                op, np.asarray(flat, np.uint64), offs, b64, row_tokens, b_token
-            )
+            with _route(op, host, total, self._min_total()) as attrs:
+                attrs["route"] = "rows"
+                return self._vs_one_device(
+                    op, np.asarray(flat, np.uint64), offs, b64, row_tokens, b_token
+                )
         rows = [flat[offs[i] : offs[i + 1]] for i in range(n)]
         res = self.run_rows_vs_one(
             op, rows, b64, row_tokens=row_tokens, b_token=b_token
@@ -770,33 +810,41 @@ class SetOpDispatcher:
             # k-way union of MANY small rows: one host unique beats both
             # the pairwise loop and a device merge whose padding is mostly
             # air (the uid_in reverse fan-out shape)
-            return np.unique(np.concatenate(parts))
-        if self._host(total):
-            if op == "union" and len(parts) > 4:
+            with _route(op, True, total, self._min_total()) as attrs:
+                attrs["route"] = "host_vectorised"
                 return np.unique(np.concatenate(parts))
-            out = parts[0]
-            for p in parts[1:]:
-                out = _np_op(op, out, p)
-            return out
-        segs = [split_segments(p) for p in parts]
-        his = set()
-        for s in segs:
-            his |= set(s)
-        if len(his) > 1:
-            out = parts[0]
-            for p in parts[1:]:
-                out = self.run_pairs(op, [(out, p)])[0]
-            return out
-        hi = next(iter(his)) if his else 0
-        arrs = [s.get(hi, np.zeros((0,), np.uint32)) for s in segs]
-        # the k lists back to back in one copy; the count comes back, then
-        # the kept words alone
-        X, offs = _stage(self._dev(), [
-            np.concatenate(arrs), _offsets(np.fromiter(map(len, arrs), np.int64, len(arrs))),
-        ])
-        fn = setop_merge.intersect_many if op == "intersect" else setop_merge.merge_sorted
-        _, words, _ = _read_back(*fn(X, offs), 1)
-        return join_segments({hi: words})
+        host = self._host(total)
+        with _route(op, host, total, self._min_total()) as attrs:
+            if host:
+                if op == "union" and len(parts) > 4:
+                    attrs["route"] = "host_vectorised"
+                    return np.unique(np.concatenate(parts))
+                attrs["route"] = "host_native"
+                out = parts[0]
+                for p in parts[1:]:
+                    out = _np_op(op, out, p)
+                return out
+            segs = [split_segments(p) for p in parts]
+            his = set()
+            for s in segs:
+                his |= set(s)
+            if len(his) > 1:
+                attrs["route"] = "pairs"
+                out = parts[0]
+                for p in parts[1:]:
+                    out = self.run_pairs(op, [(out, p)])[0]
+                return out
+            attrs["route"] = "chain"
+            hi = next(iter(his)) if his else 0
+            arrs = [s.get(hi, np.zeros((0,), np.uint32)) for s in segs]
+            # the k lists back to back in one copy; the count comes back,
+            # then the kept words alone
+            X, offs = _stage(self._dev(), [
+                np.concatenate(arrs), _offsets(np.fromiter(map(len, arrs), np.int64, len(arrs))),
+            ])
+            fn = setop_merge.intersect_many if op == "intersect" else setop_merge.merge_sorted
+            _, words, _ = _read_back(*fn(X, offs), 1)
+            return join_segments({hi: words})
 
     def _run_chain_packed_intersect(self, parts: List) -> np.ndarray:
         """Intersect chain with packed operands: fold from the smallest
@@ -863,10 +911,14 @@ class SetOpDispatcher:
             METRICS.inc("setop_packed_total", len(pairs) - len(dense))
         if dense:
             total = sum(len(a) + len(b) for a, b in dense)
-            if self._host(total):
-                got = [_np_op(op, a, b) for a, b in dense]
-            else:
-                got = self._run_pairs_device(op, dense)
+            host = self._host(total)
+            with _route(op, host, total, self._min_total()) as attrs:
+                if host:
+                    attrs["route"] = "host_native"
+                    got = [_np_op(op, a, b) for a, b in dense]
+                else:
+                    attrs["route"] = "pairs"
+                    got = self._run_pairs_device(op, dense)
             for i, res in zip(dense_at, got):
                 out[i] = res
         return out

@@ -871,31 +871,38 @@ class Tracer:
 
     @contextmanager
     def span(self, name: str, parent: Optional[SpanContext] = None, **attrs):
+        # every span stamps the monotonic clock too, which its duration
+        # is read from, and is a host range of torch.profiler's trace
+        # while the profiler records (utils/hosttrace.py)
+        from dgraph_tpu_torch.utils import hosttrace
+
+        token = None
         if not _trace_enabled():
-            sp = Span(name, 0, 0, None)
-            sp.attrs.update(attrs)
-            yield sp
-            return
-        par = parent if parent is not None else _CURRENT.get()
-        if par is None:
-            sp = Span(
-                name, _gen_trace_id(), _gen_span_id(), None,
-                sampled=_sample_root(),
-            )
+            sp = hosttrace.TimedSpan(name, 0, 0, None)
         else:
-            sp = Span(
-                name, par.trace_id, _gen_span_id(), par.span_id,
-                sampled=par.sampled,
-            )
+            par = parent if parent is not None else _CURRENT.get()
+            if par is None:
+                sp = hosttrace.TimedSpan(
+                    name, _gen_trace_id(), _gen_span_id(), None,
+                    sampled=_sample_root(),
+                )
+            else:
+                sp = hosttrace.TimedSpan(
+                    name, par.trace_id, _gen_span_id(), par.span_id,
+                    sampled=par.sampled,
+                )
+            token = _CURRENT.set(sp)
         sp.attrs.update(attrs)
-        token = _CURRENT.set(sp)
+        rec = hosttrace.enter(name)
         try:
             yield sp
         finally:
-            sp.end = time.time()
-            _CURRENT.reset(token)
-            self._finish(sp)
-            METRICS.observe(f"span_{name}_seconds", sp.end - sp.start)
+            sp.close()
+            hosttrace.leave(rec)
+            if token is not None:
+                _CURRENT.reset(token)
+                self._finish(sp)
+                METRICS.observe(f"span_{name}_seconds", sp.seconds)
 
     def _finish(self, sp: Span) -> None:
         with self._lock:

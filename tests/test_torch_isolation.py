@@ -63,6 +63,7 @@ PORTED = {
     "ops/vector_topk.py",
     "parallel/mesh.py",
     "query/dispatch.py",
+    "utils/hosttrace.py",
 }
 # copies with a repair: (module, top-level function, Class.method or
 # assigned name)
@@ -93,6 +94,10 @@ REPAIRED = {
     # devsetup.py and no raw environment read in its dispatcher: their
     # allowances would match nothing, and an unused allowance fails lint
     "analysis/allowlist.py": ["ALLOWLIST"],
+    # every span is also a host range of torch.profiler's trace while a
+    # records, and reads its duration from the monotonic clock
+    # (utils/hosttrace.py)
+    "utils/observe.py": ["Tracer.span"],
 }
 
 
