@@ -76,6 +76,21 @@ from dgraph_tpu_torch.worker.groupcommit import (
 from dgraph_tpu_torch.x import config, keys
 from dgraph_tpu_torch.zero.zero import ZeroLite
 
+# The stream encoder's row counters (query/streamjson.py), declared here
+# because utils/observe.py is kept equal to the JAX package's registry.
+observe.declare_metric(
+    "counter", "stream_encode_column_rows_total",
+    "Result rows the streaming encoder printed column by column: every "
+    "child of the list's node has a column (the uid, count(pred), a "
+    "scalar value) (query/streamjson.py).",
+)
+observe.declare_metric(
+    "counter", "stream_encode_entity_rows_total",
+    "Result rows the streaming encoder printed one entity at a time: a "
+    "child needs the entity path (a uid predicate, math, val(), a list "
+    "or language value) (query/streamjson.py).",
+)
+
 
 class TxnHandle:
     """Client-side transaction handle (dgo Txn equivalent)."""

@@ -118,9 +118,9 @@ class Arena:
 
 
 # row-shape classification for the block-at-a-time kernels
-_KIND_GENERIC = 0
-_KIND_UID = 1  # children == [uid leaf]: rows are [{"uid":"0x.."}, ...]
-_KIND_COUNT = 2  # children == [count(pred) leaf]: rows are [{"c":N}, ...]
+_COL_UID = 1  # the entity's own uid: "uid":"0x.."
+_COL_COUNT = 2  # count(pred), from the level's length vector: "c":N
+_COL_VALUE = 3  # a scalar value predicate's first posting: "name":v
 
 
 class StreamEncoder(JsonEncoder):
@@ -134,6 +134,10 @@ class StreamEncoder(JsonEncoder):
         from dgraph_tpu_torch import native
 
         self._native = native if (native_ok and native.NATIVE_AVAILABLE) else None
+        # rows printed by the column path / sent through _emit_entity_b,
+        # published once per answer by encode_blocks_into
+        self._column_rows = 0
+        self._entity_rows = 0
 
     # -- per-node caches ---------------------------------------------------
 
@@ -196,33 +200,54 @@ class StreamEncoder(JsonEncoder):
                     return False
         return True
 
-    def _row_kind(self, c: ExecNode) -> int:
-        k = getattr(c, "_row_kind", None)
-        if k is not None:
-            return k
-        k = _KIND_GENERIC
-        if len(c.children) == 1:
-            cc = c.children[0]
-            ccq = cc.gq
-            plain = not (
-                ccq.aggregator
-                or ccq.val_var
-                or ccq.math_expr is not None
-                or ccq.checkpwd_val is not None
-                or cc.groups
-                or ccq.groupby_attrs
-            )
-            if ccq.is_uid and plain:
-                k = _KIND_UID
-            elif (
-                ccq.is_count
-                and ccq.attr != "uid"
-                and not ccq.is_uid
-                and plain
-            ):
-                k = _KIND_COUNT
-        c._row_kind = k  # type: ignore
-        return k
+    def _column_plan(self, node: ExecNode) -> Optional[List[tuple]]:
+        """How `node`'s entities print, decided once from its children:
+        one `(kind, child, key bytes)` per child that prints a field of
+        its own in every entity, in field order, for `_write_columns`.
+        None where some child needs the entity path: math, val(),
+        checkpwd, a per-parent aggregate, a nested uid predicate, a list
+        or language value, or a value with no schema entry. Children
+        that print nothing in an entity — count(uid), scalar aggregates,
+        count() of an unschema'd predicate, a password — take no column,
+        so a list of only those has an empty plan. The tests follow
+        `_emit_entity_b`'s branches, in its order."""
+        plan = getattr(node, "_col_plan", False)
+        if plan is not False:
+            return plan
+        plan = []
+        for c in node.children:
+            gq = c.gq
+            if gq.is_uid:
+                plan.append((_COL_UID, c, self._key_bytes(c)))
+            elif gq.checkpwd_val is not None or gq.math_expr is not None:
+                plan = None
+                break
+            elif gq.aggregator:
+                if any(k != MAXUID for k in c.math_vals):
+                    plan = None  # a per-parent aggregate
+                    break
+            elif gq.val_var:
+                plan = None
+                break
+            elif gq.is_count:
+                # count() of a predicate with no schema entry prints nothing
+                if gq.attr != "uid" and (
+                    self.schema is None
+                    or self.schema.get(c.attr.lstrip("~")) is not None
+                ):
+                    plan.append((_COL_COUNT, c, self._key_bytes(c)))
+            elif c.is_uid_pred:
+                plan = None
+                break
+            else:
+                su = self.schema.get(c.attr) if self.schema else None
+                if su is None or su.is_list or gq.lang:
+                    plan = None
+                    break
+                if su.value_type != TypeID.PASSWORD:
+                    plan.append((_COL_VALUE, c, self._key_bytes(c)))
+        node._col_plan = plan  # type: ignore
+        return plan
 
     # -- block level -------------------------------------------------------
 
@@ -244,6 +269,10 @@ class StreamEncoder(JsonEncoder):
                     continue
                 name = "_path_"
             entries[name] = self._node_list_chunks(node)
+        if self._column_rows:
+            METRICS.inc("stream_encode_column_rows_total", self._column_rows)
+        if self._entity_rows:
+            METRICS.inc("stream_encode_entity_rows_total", self._entity_rows)
         a.write(b"{")
         first = True
         for name, chunks in entries.items():
@@ -305,18 +334,10 @@ class StreamEncoder(JsonEncoder):
 
         dest = node.dest_uids
         if len(dest):
-            kind = self._row_kind(node)
-            if kind == _KIND_UID:
-                if n:
-                    a.write(b",")
-                self._write_uid_objs(a, node.children[0], dest)
-            elif kind == _KIND_COUNT and self._count_emits(node.children[0]):
-                if n:
-                    a.write(b",")
-                self._write_count_objs(a, node.children[0], dest)
-            elif kind == _KIND_COUNT:
-                pass  # count of an unschema'd predicate: every entity {}
-            else:
+            plan = self._column_plan(node)
+            if plan:
+                self._write_columns(a, plan, dest, n > 0)
+            elif plan is None:
                 for i, u in enumerate(dest):
                     m = a.mark()
                     if n:
@@ -334,6 +355,7 @@ class StreamEncoder(JsonEncoder):
         subset: no normalize/ignorereflex/facets/groupby — those fall
         back at block level). Returns False when the entity is empty
         (caller rolls the arena back, matching `if obj:` pruning)."""
+        self._entity_rows += 1
         a.write(b"{")
         nf = 0  # fields written
         for c in node.children:
@@ -456,33 +478,24 @@ class StreamEncoder(JsonEncoder):
             and not has_count_row  # count rows need the list
         )
         a.write(self._key_bytes(c))
-        kind = self._row_kind(c)
         if not single:
-            if kind == _KIND_UID:
-                a.write(b"[")
-                self._write_uid_objs(a, c.children[0], r)
-                a.write(b"]")
-                return True
-            if kind == _KIND_COUNT:
-                if not self._count_emits(c.children[0]):
-                    return False  # every kid would be {}
-                a.write(b"[")
-                self._write_count_objs(a, c.children[0], r)
-                a.write(b"]")
-                return True
             a.write(b"[")
-            nk = 0
-            dest_idx = self._dest_idx(c)
-            for v in r:
-                m = a.mark()
-                if nk:
-                    a.write(b",")
-                if self._emit_entity_b(
-                    a, c, int(v), dest_idx.get(int(v), 0)
-                ):
-                    nk += 1
-                else:
-                    a.truncate(m)
+            plan = self._column_plan(c)
+            if plan is not None:
+                nk = self._write_columns(a, plan, r, False) if plan else 0
+            else:
+                nk = 0
+                dest_idx = self._dest_idx(c)
+                for v in r:
+                    m = a.mark()
+                    if nk:
+                        a.write(b",")
+                    if self._emit_entity_b(
+                        a, c, int(v), dest_idx.get(int(v), 0)
+                    ):
+                        nk += 1
+                    else:
+                        a.truncate(m)
             # `friend { count(uid) }`: the row count appends as one
             # extra {"count": n} object in the child list
             for cc in count_children:
@@ -523,12 +536,23 @@ class StreamEncoder(JsonEncoder):
 
     # -- block-at-a-time bulk emitters -------------------------------------
 
-    def _count_emits(self, cnt: ExecNode) -> bool:
-        """Mirror of the count-entity schema gate: count() of a
-        predicate with no schema entry emits nothing."""
-        return self.schema is None or (
-            self.schema.get(cnt.attr.lstrip("~")) is not None
-        )
+    def _write_int_objs(self, a: Arena, pre: bytes, vals, sep: bool) -> int:
+        """`{"c":5},{"c":3},...`: `pre`, each int64 of `vals` and `}`,
+        in one native call where there are more than 32. Writes `,`
+        first when `sep` and `vals` is not empty; returns the rows."""
+        if not len(vals):
+            return 0
+        if sep:
+            a.write(b",")
+        self._column_rows += len(vals)
+        if self._native is not None and vals.size > 32:
+            out = self._native.enc_int_objs(vals, pre, b"}")
+            if out is not None:
+                METRICS.inc("stream_encode_native_bytes_total", len(out))
+                a.write(out)
+                return len(vals)
+        a.write(b",".join([pre + b"%d}" % v for v in vals.tolist()]))
+        return len(vals)
 
     def _uid_pre(self, leaf: ExecNode) -> bytes:
         pre = getattr(leaf, "_uid_pre_b", None)
@@ -593,21 +617,68 @@ class StreamEncoder(JsonEncoder):
             cnt._counts_vec_sorted = ok  # type: ignore
         return ok
 
-    def _write_count_objs(self, a: Arena, cnt: ExecNode, uids) -> None:
-        """`{"c":5},{"c":3},...` for a whole count row."""
-        pre = b"{" + self._key_bytes(cnt)
-        post = b"}"
+    def _write_columns(self, a: Arena, plan, uids, sep: bool) -> int:
+        """The entities of `uids` under a `_column_plan`, built a column
+        at a time: each child's fields in one pass over the rows, then
+        each row's object in one join, and one write for the lot. A row
+        whose every column is a hole is left out, as the dict encoder's
+        `if obj:` leaves out an empty entity. Writes `,` first when
+        `sep` and some row prints; returns the rows printed.
+
+        A lone uid column goes to the native `enc_uid_objs`, a lone
+        count or INT column to `enc_int_objs`; a value's first posting
+        decodes in bulk where it is INT or BOOL, and any other type
+        through the same `dumps_bytes(_json_val(...))` as an entity."""
         arr = np.asarray(uids, dtype=np.uint64)
-        vals = self._row_counts(cnt, arr)
-        if self._native is not None and vals.size > 32:
-            out = self._native.enc_int_objs(vals, pre, post)
-            if out is not None:
-                METRICS.inc("stream_encode_native_bytes_total", len(out))
-                a.write(out)
-                return
-        a.write(
-            b",".join(pre + b"%d" % v + post for v in vals.tolist())
-        )
+        lone = len(plan) == 1
+        if lone and plan[0][0] == _COL_UID:
+            if sep:
+                a.write(b",")
+            self._write_uid_objs(a, plan[0][1], arr)
+            self._column_rows += len(arr)
+            return len(arr)
+        rows = arr.tolist()
+        cols = []
+        for kind, c, key in plan:
+            pre = key if lone else b"," + key
+            if kind == _COL_UID:
+                cols.append([pre + b'"0x%x"' % u for u in rows])
+                continue
+            have = None  # per row, whether it has a value; None: all do
+            got, ints, shapes = (), None, ()
+            if kind == _COL_COUNT:
+                ints = self._row_counts(c, arr)
+            else:
+                firsts = [p[0] if p else None for p in map(c.values.get, rows)]
+                got = [p for p in firsts if p is not None]
+                if len(got) < len(firsts):
+                    have = [p is not None for p in firsts]
+                shapes = {(p.value_type, len(p.value)) for p in got}
+                if shapes == {(TypeID.INT, 8)}:
+                    ints = np.frombuffer(b"".join([p.value for p in got]), "<i8")
+            if ints is not None and lone:
+                return self._write_int_objs(a, b"{" + key, ints, sep)
+            if ints is not None:
+                vals = [b"%d" % v for v in ints.tolist()]
+            elif shapes and {t for t, _ in shapes} == {TypeID.BOOL}:
+                vals = [b"true" if p.value == b"\x01" else b"false" for p in got]
+            else:
+                vals = [dumps_bytes(_json_val(p.val())) for p in got]
+            if have is None:
+                cols.append([pre + v for v in vals])
+            else:
+                it = iter(vals)
+                cols.append([pre + next(it) if h else b"" for h in have])
+        if lone:
+            objs = [f for f in cols[0] if f]
+        else:  # each field led by its comma: drop the row's first
+            objs = [r[1:] for r in map(b"".join, zip(*cols)) if r]
+        if objs:
+            if sep:
+                a.write(b",")
+            a.write(b"{" + b"},{".join(objs) + b"}")
+        self._column_rows += len(objs)
+        return len(objs)
 
 
 def encode_data_bytes(

@@ -98,6 +98,26 @@ REPAIRED = {
     # records, and reads its duration from the monotonic clock
     # (utils/hosttrace.py)
     "utils/observe.py": ["Tracer.span"],
+    # a result list prints column by column where every child of its
+    # node has a column (the uid, count(pred), a scalar value), decided
+    # once per node, instead of one entity at a time; the row counters
+    # (declared in api/server.py)
+    "query/streamjson.py": [
+        # the column kinds, in the slot of the row kinds they replace
+        "_KIND_GENERIC", "_KIND_UID", "_KIND_COUNT",
+        "_COL_UID", "_COL_COUNT", "_COL_VALUE",
+        # the row counters: zeroed per answer, published once
+        "StreamEncoder.__init__", "StreamEncoder.encode_blocks_into",
+        # the per-node plan, in the slot of the row kind it replaces
+        "StreamEncoder._row_kind", "StreamEncoder._column_plan",
+        # the lists print through the plan; the entity path counts rows
+        "StreamEncoder._emit_node_list", "StreamEncoder._emit_entity_b",
+        "StreamEncoder._emit_uid_pred",
+        # the column writer and the int-object writer, in the slots of
+        # the count-object writer and the count gate folded into them
+        "StreamEncoder._write_count_objs", "StreamEncoder._write_columns",
+        "StreamEncoder._count_emits", "StreamEncoder._write_int_objs",
+    ],
 }
 
 
