@@ -90,6 +90,19 @@ observe.declare_metric(
     "child needs the entity path (a uid predicate, math, val(), a list "
     "or language value) (query/streamjson.py).",
 )
+# The vector index's scan counters (models/vector.py), declared here for
+# the same reason.
+observe.declare_metric(
+    "counter", "vector_rows_scanned_total",
+    "Rows the vector index scored: each probed slab's 128 rows on the IVF "
+    "tier, the live rows on a full scan, the rows the quantized scans "
+    "read (models/vector.py).",
+)
+observe.declare_metric(
+    "counter", "vector_slabs_probed_total",
+    "Slabs of 128 rows the vector index's IVF tier probed on the device "
+    "(models/vector.py).",
+)
 
 
 class TxnHandle:

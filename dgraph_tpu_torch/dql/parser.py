@@ -47,7 +47,10 @@ class ParseError(Exception):
 _TOKEN_RE = re.compile(
     r"""
     (?P<ws>\s+|\#[^\n]*|//[^\n]*)
-  | (?P<string>"(?:\\.|[^"\\])*")
+  # a string is runs of plain characters between its escapes, one
+  # greedy class a run: a long literal (a vector of 768 floats) lexes
+  # without a backtracking frame a character
+  | (?P<string>"[^"\\]*(?:\\.[^"\\]*)*")
   | (?P<regex>/(?:\\.|[^/\\])+/[i]?)
   | (?P<num>0x[0-9a-fA-F]+|\d+\.\d+|\d+)
   | (?P<name>~?[a-zA-Z_][\w.~]*|<[^>]+>|\$[a-zA-Z_]\w*)

@@ -368,11 +368,19 @@ def _qi8_scan_py(
 # ---------------------------------------------------------------------------
 
 
-def _train_centroids(X: np.ndarray, nlist: int, rng) -> np.ndarray:
+def _train_centroids(
+    X: np.ndarray, nlist: int, rng, spherical: bool = False
+) -> np.ndarray:
     """Mini-batch k-means (Sculley 2010) on a bounded sample: the full
     Lloyd-on-100k-sample train this replaces cost 255s at 1Mx768
     (VECTOR_1M_CPU.json) — the mini-batch pass is bounded by
-    steps*B*nlist*d regardless of corpus size."""
+    steps*B*nlist*d regardless of corpus size.
+
+    `spherical` (unit rows, a cosine index): each centroid is put back
+    on the unit sphere after every update. A plain mean of unit rows
+    from two clusters lies near the origin, and so near every row: with
+    two cells a row it became the second cell of most rows, a cell
+    dozens of times the mean that a probe reads only in part."""
     n, d = X.shape
     nlist = max(1, min(nlist, n))
     sample_n = int(min(n, max(32 * nlist, 16384)))
@@ -400,6 +408,10 @@ def _train_centroids(X: np.ndarray, nlist: int, rng) -> np.ndarray:
         cents[uniq] = cents[uniq] * (1.0 - lr) + (
             sums / cnt[:, None]
         ) * lr
+        if spherical:
+            cents[uniq] /= np.maximum(
+                np.sqrt((cents[uniq] * cents[uniq]).sum(axis=1)), 1e-30
+            )[:, None]
     return cents
 
 
@@ -542,33 +554,49 @@ class VectorIndex:
         v[: self._n] = self._valid[: self._n]
         self._valid = v
 
-    def insert(self, uid: int, vec) -> None:
-        vec = np.asarray(vec, dtype=np.float32).reshape(-1)
+    def insert(self, uid, vec) -> None:
+        """Insert or update one row: uid, vec (d,). Or a block of rows in
+        one step, as a commit's vectors arrive: uids (m,) with vecs
+        (m, d), appended in order exactly as m single inserts would be
+        (a uid already present, or repeated in the block, tombstones its
+        earlier row)."""
+        vecs = np.asarray(vec, dtype=np.float32)
+        block = vecs.ndim == 2
+        if not block:
+            vecs = vecs.reshape(1, -1)
+        uids = [int(u) for u in np.asarray(uid).reshape(-1)] if block else [int(uid)]
+        if len(uids) != len(vecs):
+            raise ValueError("insert wants aligned (uids, (m, d) vecs)")
+        if not uids:
+            return
         with self._lock:
             if self._vecs is None:
-                self._vecs = np.zeros((_PAD_ROWS, vec.shape[0]), np.float32)
+                self._vecs = np.zeros((_PAD_ROWS, vecs.shape[1]), np.float32)
                 self._uid_of = np.zeros((_PAD_ROWS,), np.uint64)
                 self._valid = np.zeros((_PAD_ROWS,), np.uint8)
-            if vec.shape[0] != self._vecs.shape[1]:
+            if vecs.shape[1] != self._vecs.shape[1]:
                 raise ValueError(
                     f"dim mismatch: index {self._vecs.shape[1]}, "
-                    f"got {vec.shape[0]}"
+                    f"got {vecs.shape[1]}"
                 )
-            uid = int(uid)
-            old = self._rows.get(uid)
-            if old is not None:
-                # update = tombstone + append: the new value may belong
-                # to a different IVF cell, and an in-place overwrite
-                # would silently stale the quantized sidecars
-                self._tombstone(old)
-            self._grow(self._n + 1)
-            row = self._n
-            self._n += 1
-            self._vecs[row] = vec
-            self._uid_of[row] = uid
-            self._valid[row] = 1
-            self._rows[uid] = row
-            self._live += 1
+            m = len(uids)
+            self._grow(self._n + m)
+            base = self._n
+            self._vecs[base : base + m] = vecs
+            self._uid_of[base : base + m] = np.asarray(uids, np.uint64)
+            self._valid[base : base + m] = 1
+            self._n += m
+            rows = self._rows
+            for row, u in enumerate(uids, base):
+                old = rows.get(u)
+                if old is not None:
+                    # update = tombstone + append: the new value may
+                    # belong to a different IVF cell, and an in-place
+                    # overwrite would silently stale the quantized
+                    # sidecars
+                    self._tombstone(old)
+                rows[u] = row
+            self._live += m
             self._dirty = True
 
     def remove(self, uid: int) -> None:
@@ -668,66 +696,68 @@ class VectorIndex:
     def _sync_device(self):
         import torch
 
+        from dgraph_tpu_torch.utils.observe import TRACER
+
         if not self._dirty and self._device is not None:
             return
-        with self._lock:
-            # gather atomically: the quant path's compaction renumbers
-            # rows and swaps these buffers under the same lock, so an
-            # unlocked multi-step read here could mix old indices with
-            # new (shorter) arrays
-            live_idx = np.flatnonzero(self._valid[: self._n])
-            nlive = int(live_idx.size)
-            cap = _pow2_rows(nlive)
-            d = self._vecs.shape[1]
-            mat = np.zeros((cap, d), np.float32)
-            mat[:nlive] = self._vecs[live_idx]
-            uids = np.zeros((cap,), np.uint64)
-            uids[:nlive] = self._uid_of[live_idx]
-        valid = np.zeros((cap,), bool)
-        valid[:nlive] = True
-        self._uids_np = uids
-        self._mesh = None
-        mesh = None
-        if bool(config.get("SHARD_VECTORS")):
-            from dgraph_tpu_torch.parallel import mesh as pmesh
+        # the host copy of the live rows and its upload; the IVF training
+        # that follows is a span of its own
+        with TRACER.span("vector_sync", rows=0) as sp:
+            with self._lock:
+                # gather atomically: the quant path's compaction renumbers
+                # rows and swaps these buffers under the same lock, so an
+                # unlocked multi-step read here could mix old indices with
+                # new (shorter) arrays
+                live_idx = np.flatnonzero(self._valid[: self._n])
+                nlive = int(live_idx.size)
+                cap = _pow2_rows(nlive)
+                d = self._vecs.shape[1]
+                mat = np.zeros((cap, d), np.float32)
+                mat[:nlive] = self._vecs[live_idx]
+                uids = np.zeros((cap,), np.uint64)
+                uids[:nlive] = self._uid_of[live_idx]
+            sp.attrs["rows"] = nlive
+            valid = np.zeros((cap,), bool)
+            valid[:nlive] = True
+            self._uids_np = uids
+            self._mesh = None
+            mesh = None
+            if bool(config.get("SHARD_VECTORS")):
+                from dgraph_tpu_torch.parallel import mesh as pmesh
 
-            mesh = pmesh.make_mesh(device=self.device)
-        if mesh is not None and mesh.size > 1:
-            # row-shard the corpus over the device mesh: per-shard top-k,
-            # all_gather, global reduce (parallel/mesh.py sharded_topk —
-            # the TP-over-rows data plane for 1M×768-class corpora)
-            ndev = mesh.size
-            rows = -(-cap // ndev) * ndev
-            if rows != cap:
-                mat = np.vstack([mat, np.zeros((rows - cap, d), np.float32)])
-                uids = np.concatenate(
-                    [uids, np.zeros((rows - cap,), np.uint64)]
-                )
-                valid = np.concatenate(
-                    [valid, np.zeros((rows - cap,), bool)]
-                )
-                self._uids_np = uids
-            self._mesh = mesh
-            self._device = {
-                "vecs": pmesh.shard(mesh, mat),
-                "uids": uids,  # host: gathered indices map back to uids
-                "valid": pmesh.shard(mesh, valid),
-                "sqnorm": None,
-            }
-            self._dirty = False
-            if nlive >= self.ivf_threshold:
-                self._train_ivf(mat[:nlive])
+                mesh = pmesh.make_mesh(device=self.device)
+            if mesh is not None and mesh.size > 1:
+                # row-shard the corpus over the device mesh: per-shard
+                # top-k, all_gather, global reduce (parallel/mesh.py
+                # sharded_topk — the TP-over-rows data plane for
+                # 1M×768-class corpora)
+                ndev = mesh.size
+                rows = -(-cap // ndev) * ndev
+                if rows != cap:
+                    mat = np.vstack([mat, np.zeros((rows - cap, d), np.float32)])
+                    uids = np.concatenate(
+                        [uids, np.zeros((rows - cap,), np.uint64)]
+                    )
+                    valid = np.concatenate(
+                        [valid, np.zeros((rows - cap,), bool)]
+                    )
+                    self._uids_np = uids
+                self._mesh = mesh
+                self._device = {
+                    "vecs": pmesh.shard(mesh, mat),
+                    "uids": uids,  # host: gathered indices map back to uids
+                    "valid": pmesh.shard(mesh, valid),
+                    "sqnorm": None,
+                }
             else:
-                self._ivf = None
-            return
-        dev = self.device
-        self._device = {
-            "vecs": torch.from_numpy(mat).to(dev),
-            "uids": uids,
-            "valid": torch.from_numpy(valid).to(dev),
-            "sqnorm": torch.from_numpy((mat * mat).sum(axis=1)).to(dev),
-        }
-        self._dirty = False
+                dev = self.device
+                self._device = {
+                    "vecs": torch.from_numpy(mat).to(dev),
+                    "uids": uids,
+                    "valid": torch.from_numpy(valid).to(dev),
+                    "sqnorm": torch.from_numpy((mat * mat).sum(axis=1)).to(dev),
+                }
+            self._dirty = False
         if nlive >= self.ivf_threshold:
             self._train_ivf(mat[:nlive])
         else:
@@ -759,54 +789,76 @@ class VectorIndex:
             allowed_set = np.asarray(allowed, np.uint64)
             # filter drops candidates; widen the pool up-front
             pool = max(pool, 4 * kk)
+        from dgraph_tpu_torch.utils.observe import TRACER
+        # one span a search, by the route it took (ivf, brute, mesh,
+        # quant), with k, the candidate pool and the slabs probed; the
+        # device sync before it is a span of its own
         if self._use_quant():
-            return self._quant_search_filtered(
-                q, kk, pool, distance_threshold, allowed_set
-            )
+            with TRACER.span(
+                "vector_search", route="quant", k=int(kk), pool=int(pool),
+                m_slabs=0,
+            ):
+                return self._quant_search_filtered(
+                    q, kk, pool, distance_threshold, allowed_set
+                )
         self._sync_device()
         import torch
 
         COUNTERS.searches += 1
         _metrics().inc("vector_search_total")
-        # widen the candidate pool until k survivors or the whole set seen
-        # (the HNSW analog is raising ef; ref index.go VectorIndexOptions)
-        while True:
-            if self._mesh is not None:
-                from dgraph_tpu_torch.parallel import mesh as pmesh
+        with TRACER.span(
+            "vector_search", route="", k=int(kk), pool=int(pool), m_slabs=0
+        ) as sp:
+            # widen the candidate pool until k survivors or the whole set
+            # seen (the HNSW analog is raising ef; ref index.go
+            # VectorIndexOptions)
+            while True:
+                if self._mesh is not None:
+                    from dgraph_tpu_torch.parallel import mesh as pmesh
 
-                npool = min(max(pool, kk), self._live)
-                dd, idx = pmesh.sharded_topk(
-                    self._mesh,
-                    self._device["vecs"],
-                    self._device["valid"],
-                    torch.tensor(q),
-                    npool,
-                )
-                cand_dists = dd.cpu().numpy()
-                cand_uids = self._device["uids"][idx.cpu().numpy()]
-            elif self._jit_ivf_wins(1):
-                COUNTERS.path_jit_ivf += 1
-                cand_uids, cand_dists = self._ivf_search(q, max(pool, 4 * kk))
-            else:
-                COUNTERS.path_jit_brute += 1
-                npool = min(max(pool, kk), self._live)
-                fn = _jit_brute(self.metric, int(npool))
-                dd, idx = fn(
-                    self._device["vecs"],
-                    self._device["sqnorm"],
-                    self._device["valid"],
-                    torch.tensor(q, device=self.device),
-                )
-                cand_dists = dd.cpu().numpy()
-                cand_uids = self._uids_np[idx.cpu().numpy()]
+                    sp.attrs["route"] = "mesh"
+                    npool = min(max(pool, kk), self._live)
+                    sp.attrs["pool"] = int(npool)
+                    _metrics().inc("vector_rows_scanned_total", self._live)
+                    dd, idx = pmesh.sharded_topk(
+                        self._mesh,
+                        self._device["vecs"],
+                        self._device["valid"],
+                        torch.tensor(q),
+                        npool,
+                    )
+                    cand_dists = dd.cpu().numpy()
+                    cand_uids = self._device["uids"][idx.cpu().numpy()]
+                elif self._jit_ivf_wins(1):
+                    COUNTERS.path_jit_ivf += 1
+                    sp.attrs["route"] = "ivf"
+                    cand_uids, cand_dists = self._ivf_search(
+                        q, max(pool, 4 * kk), sp.attrs
+                    )
+                else:
+                    COUNTERS.path_jit_brute += 1
+                    sp.attrs["route"] = "brute"
+                    npool = min(max(pool, kk), self._live)
+                    sp.attrs["pool"] = int(npool)
+                    _metrics().inc("vector_rows_scanned_total", self._live)
+                    fn = _jit_brute(self.metric, int(npool))
+                    dd, idx = fn(
+                        self._device["vecs"],
+                        self._device["sqnorm"],
+                        self._device["valid"],
+                        torch.tensor(q, device=self.device),
+                    )
+                    cand_dists = dd.cpu().numpy()
+                    cand_uids = self._uids_np[idx.cpu().numpy()]
 
-            out = self._filter_candidates(
-                cand_uids, cand_dists, kk, distance_threshold, allowed_set
-            )
-            exhausted = len(cand_uids) >= self._live or pool >= self._live
-            if len(out) == kk or exhausted or allowed_set is None:
-                return np.asarray(out, np.uint64)
-            pool = min(pool * 4, self._live)
+                out = self._filter_candidates(
+                    cand_uids, cand_dists, kk, distance_threshold,
+                    allowed_set,
+                )
+                exhausted = len(cand_uids) >= self._live or pool >= self._live
+                if len(out) == kk or exhausted or allowed_set is None:
+                    return np.asarray(out, np.uint64)
+                pool = min(pool * 4, self._live)
 
     @staticmethod
     def _filter_candidates(cand_uids, cand_dists, kk, threshold, allowed_set):
@@ -834,11 +886,16 @@ class VectorIndex:
         exact float32 rerank either way. Jitted paths: ONE device
         dispatch for the batch; the brute tier is exact, the IVF tier
         approximate (same probe as the single-query path, pool 4x k)."""
+        from dgraph_tpu_torch.utils.observe import TRACER
+
         if self._live == 0:
             return np.zeros((len(Q), 0), np.uint64)
         Q = np.ascontiguousarray(np.asarray(Q, np.float32))
         if self._use_quant():
-            return self._quant_search_batch(Q, k)
+            with TRACER.span(
+                "vector_search", route="quant", k=int(k), pool=0, m_slabs=0
+            ):
+                return self._quant_search_batch(Q, k)
         self._sync_device()
         if self._mesh is not None:
             # sharded corpus has no replicated sqnorm; reuse the per-query
@@ -849,26 +906,32 @@ class VectorIndex:
         kk = min(max(k, 1), self._live)
         COUNTERS.searches += len(Q)
         _metrics().inc("vector_search_total", len(Q))
-        if self._jit_ivf_wins(len(Q)):
-            COUNTERS.path_jit_ivf += len(Q)
-            return self._ivf_search_batch(Q, kk)
-        COUNTERS.path_jit_brute += len(Q)
-        fn = _jit_brute_batch(self.metric, int(kk))
-        # pad the batch to a pow2 width, as the reference does for its jit
-        # signatures (padded rows are scored and discarded — per-row
-        # top-k, so real rows are unaffected)
-        m = len(Q)
-        mp = max(1, 1 << (m - 1).bit_length())
-        Qp = Q if mp == m else np.vstack(
-            [Q, np.zeros((mp - m, Q.shape[1]), np.float32)]
-        )
-        dd, idx = fn(
-            self._device["vecs"],
-            self._device["sqnorm"],
-            self._device["valid"],
-            torch.tensor(Qp, device=self.device),
-        )
-        return self._uids_np[idx.cpu().numpy()[:m]]
+        with TRACER.span(
+            "vector_search", route="", k=int(kk), pool=int(kk), m_slabs=0
+        ) as sp:
+            if self._jit_ivf_wins(len(Q)):
+                COUNTERS.path_jit_ivf += len(Q)
+                sp.attrs["route"] = "ivf"
+                return self._ivf_search_batch(Q, kk, sp.attrs)
+            COUNTERS.path_jit_brute += len(Q)
+            sp.attrs["route"] = "brute"
+            _metrics().inc("vector_rows_scanned_total", self._live * len(Q))
+            fn = _jit_brute_batch(self.metric, int(kk))
+            # pad the batch to a pow2 width, as the reference does for its
+            # jit signatures (padded rows are scored and discarded —
+            # per-row top-k, so real rows are unaffected)
+            m = len(Q)
+            mp = max(1, 1 << (m - 1).bit_length())
+            Qp = Q if mp == m else np.vstack(
+                [Q, np.zeros((mp - m, Q.shape[1]), np.float32)]
+            )
+            dd, idx = fn(
+                self._device["vecs"],
+                self._device["sqnorm"],
+                self._device["valid"],
+                torch.tensor(Qp, device=self.device),
+            )
+            return self._uids_np[idx.cpu().numpy()[:m]]
 
     def search_one(self, q, k: int) -> np.ndarray:
         """Plain (unfiltered) top-k for ONE query — exactly row 0 of
@@ -1302,6 +1365,10 @@ class VectorIndex:
         COUNTERS.scan_rows += int(
             view["live"] if rows is None else len(rows)
         )
+        _metrics().inc(
+            "vector_rows_scanned_total",
+            int(view["live"] if rows is None else len(rows)),
+        )
         idx, dist = got
         ok = idx >= 0
         return idx[ok], dist[ok]
@@ -1490,6 +1557,7 @@ class VectorIndex:
                 )
                 COUNTERS.scan_ns += time.perf_counter_ns() - t0
                 COUNTERS.scan_rows += total
+                _metrics().inc("vector_rows_scanned_total", total)
                 for i in range(len(Q)):
                     self._emit_topk_row(out, i, idx[i], Q[i], view, kk)
                 return out
@@ -1522,6 +1590,7 @@ class VectorIndex:
                 )
         COUNTERS.scan_ns += time.perf_counter_ns() - t0
         COUNTERS.scan_rows += int(view["live"]) * len(Q)
+        _metrics().inc("vector_rows_scanned_total", int(view["live"]) * len(Q))
         for i in range(len(Q)):
             self._emit_topk_row(out, i, idx[i], Q[i], view, kk)
         return out
@@ -1535,108 +1604,139 @@ class VectorIndex:
         1Mx768); assignment is the shared top-2 (coarse-to-fine above
         the exact-assignment budget). Centroids and assignment stay host
         numpy, as in the reference; the slab layout is uploaded to the
-        index's device."""
+        index's device.
+
+        A cosine index trains and assigns its cells on the
+        unit-normalised rows, and its searches normalise the query:
+        ranked by euclidean distance on the raw rows,
+        rows of unequal norm split a cluster's cells by norm, and a
+        query's neighbours by angle land in cells far from it. The slabs
+        keep the raw rows (KV2's cosine epilogue ranks the results)."""
         import torch
 
-        t0 = time.perf_counter()
-        n, d = mat.shape
-        knob = int(config.get("VEC_NLIST"))
-        nlist = self.nlist or knob or int(max(16, math.sqrt(n) * 2))
-        nlist = max(1, min(nlist, n))
-        rng = np.random.default_rng(0)
-        c_np = _train_centroids(mat, nlist, rng)
-        nlist = len(c_np)
-        self.build_count += 1
+        from dgraph_tpu_torch.utils.observe import TRACER
 
-        # multi-assignment: each vector lands in its 2 nearest cells —
-        # big recall win for weakly-clustered data at 2x cell memory
-        # (the reference's HNSW achieves the same via graph redundancy)
-        t2 = _assign_top2(mat, c_np, rng)
-        rows_rep = np.repeat(np.arange(n), 2)
-        cells_rep = t2.reshape(-1)
+        with TRACER.span("ivf_train", rows=int(len(mat)), nlist=0) as sp:
+            t0 = time.perf_counter()
+            n, d = mat.shape
+            knob = int(config.get("VEC_NLIST"))
+            nlist = self.nlist or knob or int(max(16, math.sqrt(n) * 2))
+            nlist = max(1, min(nlist, n))
+            rng = np.random.default_rng(0)
+            unit = self.metric == "cosine"
+            geo = mat
+            if unit:
+                norms = np.sqrt((mat * mat).sum(axis=1, dtype=np.float32))
+                geo = mat / np.maximum(norms, np.float32(1e-30))[:, None]
+            # a cosine index's centroids stay on the unit sphere
+            # (spherical k-means)
+            c_np = _train_centroids(geo, nlist, rng, spherical=unit)
+            nlist = len(c_np)
+            sp.attrs["nlist"] = nlist
+            self.build_count += 1
 
-        order = np.argsort(cells_rep, kind="stable")
-        sorted_cells = cells_rep[order]
-        flat_rows_cm = rows_rep[order]  # cell-major row ids
-        starts = np.searchsorted(sorted_cells, np.arange(nlist))
-        ends = np.searchsorted(sorted_cells, np.arange(nlist), side="right")
-        lens = (ends - starts).astype(np.int64)
+            # multi-assignment: each vector lands in its 2 nearest cells —
+            # big recall win for weakly-clustered data at 2x cell memory
+            # (the reference's HNSW achieves the same via graph redundancy)
+            t2 = _assign_top2(geo, c_np, rng)
+            del geo
+            rows_rep = np.repeat(np.arange(n), 2)
+            cells_rep = t2.reshape(-1)
 
-        # slab layout: pad each cell to a multiple of _SLAB so every slab
-        # belongs to exactly one cell; top-M slab probing is then a
-        # static-shape device op (_jit_ivf)
-        S = _SLAB
-        slabs_per_cell = np.maximum(1, -(-lens // S))
-        n_slabs = int(slabs_per_cell.sum())
-        flat_rows = np.full((n_slabs * S,), -1, np.int64)
-        slab_cell = np.zeros((n_slabs,), np.int32)
-        off = 0
-        for ci in range(nlist):
-            rws = flat_rows_cm[starts[ci] : ends[ci]]
-            nsl = int(slabs_per_cell[ci])
-            flat_rows[off * S : off * S + len(rws)] = rws
-            slab_cell[off : off + nsl] = ci
-            off += nsl
-        fr2 = flat_rows.reshape(n_slabs, S)
-        fv = np.zeros((n_slabs * S, d), np.float32)
-        sel = flat_rows >= 0
-        fv[sel] = mat[flat_rows[sel]]
+            order = np.argsort(cells_rep, kind="stable")
+            sorted_cells = cells_rep[order]
+            flat_rows_cm = rows_rep[order]  # cell-major row ids
+            starts = np.searchsorted(sorted_cells, np.arange(nlist))
+            ends = np.searchsorted(sorted_cells, np.arange(nlist), side="right")
+            lens = (ends - starts).astype(np.int64)
 
-        if self.nprobe is None:
-            # embedding corpora cluster (the index contract); a handful of
-            # nearest cells holds the true neighbors, and multi-assignment
-            # covers boundary queries. ef/pool widening scales the probe
-            # (the HNSW ef analog) when callers need more.
-            pknob = int(config.get("VEC_NPROBE"))
-            self.nprobe = pknob if pknob > 0 else max(8, nlist // 32)
-        # static slab budget ~ nprobe cells' worth of average slabs
-        avg_slabs = max(1.0, n_slabs / nlist)
-        m_slabs = int(min(n_slabs, max(8, round(self.nprobe * avg_slabs))))
-        fsq = (fv * fv).sum(axis=1).astype(np.float32)
-        dev = self.device
-        self._ivf = {
-            "centroids": c_np,
-            "cell_lens": lens.astype(np.int32),
-            "m_slabs": m_slabs,
-            "n_slabs": n_slabs,
-            "dev": {
-                "cents": torch.from_numpy(c_np).to(dev),
-                "csq": torch.from_numpy((c_np * c_np).sum(axis=1)).to(dev),
-                "slab_cell": torch.from_numpy(slab_cell).to(dev),
-                "flat_vecs": torch.from_numpy(fv.reshape(n_slabs, S, d)).to(dev),
-                "flat_sq": torch.from_numpy(fsq.reshape(n_slabs, S)).to(dev),
-                "flat_rows": torch.from_numpy(fr2.astype(np.int32)).to(dev),
-            },
-        }
-        _metrics().set_gauge(
-            "vector_index_build_seconds", time.perf_counter() - t0
-        )
+            # slab layout: pad each cell to a multiple of _SLAB so every slab
+            # belongs to exactly one cell; top-M slab probing is then a
+            # static-shape device op (_jit_ivf)
+            S = _SLAB
+            slabs_per_cell = np.maximum(1, -(-lens // S))
+            n_slabs = int(slabs_per_cell.sum())
+            flat_rows = np.full((n_slabs * S,), -1, np.int64)
+            slab_cell = np.zeros((n_slabs,), np.int32)
+            off = 0
+            for ci in range(nlist):
+                rws = flat_rows_cm[starts[ci] : ends[ci]]
+                nsl = int(slabs_per_cell[ci])
+                flat_rows[off * S : off * S + len(rws)] = rws
+                slab_cell[off : off + nsl] = ci
+                off += nsl
+            fr2 = flat_rows.reshape(n_slabs, S)
+            fv = np.zeros((n_slabs * S, d), np.float32)
+            sel = flat_rows >= 0
+            fv[sel] = mat[flat_rows[sel]]
 
-    def _ivf_search(self, q: np.ndarray, pool: int):
+            if self.nprobe is None:
+                # embedding corpora cluster (the index contract); a handful of
+                # nearest cells holds the true neighbors, and multi-assignment
+                # covers boundary queries. ef/pool widening scales the probe
+                # (the HNSW ef analog) when callers need more.
+                pknob = int(config.get("VEC_NPROBE"))
+                self.nprobe = pknob if pknob > 0 else max(8, nlist // 32)
+            # static slab budget ~ nprobe cells' worth of average slabs
+            avg_slabs = max(1.0, n_slabs / nlist)
+            m_slabs = int(min(n_slabs, max(8, round(self.nprobe * avg_slabs))))
+            fsq = (fv * fv).sum(axis=1).astype(np.float32)
+            dev = self.device
+            self._ivf = {
+                "centroids": c_np,
+                "cell_lens": lens.astype(np.int32),
+                "m_slabs": m_slabs,
+                "n_slabs": n_slabs,
+                "dev": {
+                    "cents": torch.from_numpy(c_np).to(dev),
+                    "csq": torch.from_numpy((c_np * c_np).sum(axis=1)).to(dev),
+                    "slab_cell": torch.from_numpy(slab_cell).to(dev),
+                    "flat_vecs": torch.from_numpy(fv.reshape(n_slabs, S, d)).to(dev),
+                    "flat_sq": torch.from_numpy(fsq.reshape(n_slabs, S)).to(dev),
+                    "flat_rows": torch.from_numpy(fr2.astype(np.int32)).to(dev),
+                },
+            }
+            _metrics().set_gauge(
+                "vector_index_build_seconds", time.perf_counter() - t0
+            )
+
+    def _ivf_search(self, q: np.ndarray, pool: int, attrs: dict):
         """One probe on the device: top-M slabs by centroid distance, slab
         distances, top-pool (see _ivf_probe). Host only dedupes
         multi-assigned rows.
 
         A wider candidate pool (ef / filtered search retries) also widens
         the slab probe by pow2 factors — the reference's bounded jit
-        signatures, and the recall lever callers expect from raising ef."""
+        signatures, and the recall lever callers expect from raising ef.
+        `attrs`: the search span's, given the probe's pool and slabs."""
         import torch
 
+        from dgraph_tpu_torch.utils.observe import TRACER
+
+        q = np.asarray(q, np.float32)
+        if self.metric == "cosine":
+            # the cells lie on the unit sphere: the probe takes the unit
+            # query (a cosine distance does not depend on its norm)
+            q = q / np.maximum(np.sqrt((q * q).sum()), np.float32(1e-30))
         ivf = self._ivf
         m, npool = _probe_plan(ivf, pool)
+        attrs["pool"], attrs["m_slabs"] = int(npool), int(m)
+        _metrics().inc("vector_rows_scanned_total", int(m) * _SLAB)
+        _metrics().inc("vector_slabs_probed_total", int(m))
         fn = _jit_ivf(self.metric, int(m), npool)
         dev = ivf["dev"]
-        dd, rows = fn(
-            dev["cents"],
-            dev["csq"],
-            dev["slab_cell"],
-            dev["flat_vecs"],
-            dev["flat_sq"],
-            dev["flat_rows"],
-            torch.tensor(np.asarray(q, np.float32), device=self.device),
-        )
-        rows = rows.cpu().numpy()
-        dd = dd.cpu().numpy()
+        with TRACER.span("ivf_probe", queries=1, m_slabs=int(m)):
+            dd, rows = fn(
+                dev["cents"],
+                dev["csq"],
+                dev["slab_cell"],
+                dev["flat_vecs"],
+                dev["flat_sq"],
+                dev["flat_rows"],
+                torch.tensor(q, device=self.device),
+            )
+            rows = rows.cpu().numpy()
+            dd = dd.cpu().numpy()
         ok = rows >= 0
         rows, dd = rows[ok], dd[ok]
         first = _dedup_first(rows)
@@ -1645,7 +1745,7 @@ class VectorIndex:
         uids = self._uids_np[rows[:k]]
         return uids, dd[:k]
 
-    def _ivf_search_batch(self, Q: np.ndarray, k: int) -> np.ndarray:
+    def _ivf_search_batch(self, Q: np.ndarray, k: int, attrs: dict) -> np.ndarray:
         """Batched IVF (see _jit_ivf_batch). Candidate pool is 4x k (the
         same slack search() applies for filtered pools); rows that end up
         with fewer than k unique survivors pad with uid 0.
@@ -1653,23 +1753,35 @@ class VectorIndex:
         The slab scan reads the probed slabs in place and holds only the
         (nq, m_slabs * _SLAB) distances, so the batch is not chunked (the
         reference's vmapped gather held (m_slabs * _SLAB, d) floats per
-        query, ~190MB at 1Mx768)."""
+        query, ~190MB at 1Mx768). `attrs`: the search span's, given the
+        probe's pool and slabs."""
         import torch
 
+        from dgraph_tpu_torch.utils.observe import TRACER
+
+        Q = np.asarray(Q, np.float32)
+        if self.metric == "cosine":
+            # as in _ivf_search: the probe takes the unit queries
+            norm = np.sqrt((Q * Q).sum(axis=1, keepdims=True))
+            Q = Q / np.maximum(norm, np.float32(1e-30))
         ivf = self._ivf
         m, npool = _probe_plan(ivf, 4 * k)
+        attrs["pool"], attrs["m_slabs"] = int(npool), int(m)
+        _metrics().inc("vector_rows_scanned_total", int(m) * _SLAB * len(Q))
+        _metrics().inc("vector_slabs_probed_total", int(m) * len(Q))
         fn = _jit_ivf_batch(self.metric, int(m), npool)
         dev = ivf["dev"]
-        _, rows = fn(
-            dev["cents"],
-            dev["csq"],
-            dev["slab_cell"],
-            dev["flat_vecs"],
-            dev["flat_sq"],
-            dev["flat_rows"],
-            torch.tensor(np.asarray(Q, np.float32), device=self.device),
-        )
-        rows = rows.cpu().numpy()
+        with TRACER.span("ivf_probe", queries=len(Q), m_slabs=int(m)):
+            _, rows = fn(
+                dev["cents"],
+                dev["csq"],
+                dev["slab_cell"],
+                dev["flat_vecs"],
+                dev["flat_sq"],
+                dev["flat_rows"],
+                torch.tensor(Q, device=self.device),
+            )
+            rows = rows.cpu().numpy()
         out = np.zeros((len(Q), k), np.uint64)
         for i in range(len(Q)):
             r = rows[i]

@@ -127,18 +127,55 @@ def ingest_vectors(vector_indexes, deltas) -> None:
     """Vector-index ingestion at commit (factory seam, ref
     tok/index/index.go boundary): ONE implementation for every engine's
     post-commit hook. No-op without vector predicates — the per-key
-    parse is measurable on the write path."""
+    parse is measurable on the write path.
+
+    A commit's float32 vectors reach each index as one block (one
+    append of their rows, read straight from the postings' bytes); a
+    remove, or a value of another type or width, first lands the block
+    gathered so far, so every index sees the commit's writes in order."""
     if not vector_indexes:
         return
+    import numpy as np
+
+    pending = {}  # index -> ([uid], [float32 bytes]) not yet inserted
+    # a key's attr sits after its tag, its length and the 8-byte
+    # namespace: only keys of a vector predicate are parsed
+    heads = {a.encode("utf-8") for a in vector_indexes}
+
+    def land(vidx):
+        block = pending.pop(vidx, None)
+        if block:
+            uids, raw = block
+            vecs = np.frombuffer(b"".join(raw), np.float32)
+            vidx.insert(uids, vecs.reshape(len(uids), -1))
+
     for key, posts in deltas.items():
+        if key[0] != keys.TAG_SPLIT and (
+            key[11 : 3 + int.from_bytes(key[1:3], "big")] not in heads
+        ):
+            continue
         pk = keys.parse_key(key)
         vidx = vector_indexes.get(pk.attr)
         if vidx is not None and pk.is_data:
             for p in posts:
                 if p.is_value and p.op == OP_SET:
-                    vidx.insert(pk.uid, p.val().value)
+                    block = pending.get(vidx)
+                    # the index's width, or the block's before the first
+                    width = 4 * vidx.dim if vidx.dim else (
+                        len(block[1][0]) if block else len(p.value)
+                    )
+                    if p.value_type == TypeID.VFLOAT and width and len(p.value) == width:
+                        uids, raw = pending.setdefault(vidx, ([], []))
+                        uids.append(pk.uid)
+                        raw.append(p.value)
+                    else:
+                        land(vidx)
+                        vidx.insert(pk.uid, p.val().value)
                 elif p.op == OP_DEL:
+                    land(vidx)
                     vidx.remove(pk.uid)
+    for vidx in list(pending):
+        land(vidx)
 
 
 def apply_edges(

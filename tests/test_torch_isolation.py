@@ -61,6 +61,9 @@ PORTED = {
     "ops/setops.py",
     "ops/sq_distance.py",
     "ops/vector_topk.py",
+    # the plain exact top-k that the vector tests and the benchmark's
+    # vector reads are judged against
+    "models/vector_reference.py",
     "parallel/mesh.py",
     "query/dispatch.py",
     "utils/hosttrace.py",
@@ -78,8 +81,22 @@ REPAIRED = {
         "VectorIndex._sync_device", "VectorIndex.search",
         "VectorIndex.search_batch", "VectorIndex._train_ivf",
         "VectorIndex._ivf_search", "VectorIndex._ivf_search_batch",
+        # the index's spans (vector_search, ivf_probe, vector_sync,
+        # ivf_train) and its scan counters; a cosine index's cells
+        # trained (spherical k-means) and probed on unit-normalised
+        # rows, its queries normalised for the probe; a block of rows
+        # inserted in one step
+        "VectorIndex._quant_scan", "VectorIndex._quant_search_batch",
+        "VectorIndex.insert", "_train_centroids",
     ],
     "query/subgraph.py": ["Executor._order_uids_topk"],  # jax.lax.top_k -> torch
+    # a commit's vectors reach each index as one block (VectorIndex.insert
+    # of m rows), read from the postings' bytes
+    "posting/mutation.py": ["ingest_vectors"],
+    # the lexer's string token unrolled (runs of plain characters between
+    # escapes): the same tokens, without a backtracking frame a character
+    # of a long literal such as a similar_to vector
+    "dql/parser.py": ["_TOKEN_RE"],
     # the cluster entry points take the coordinator's device, as Server
     # does, and build their vector indexes on it
     "worker/groups.py": ["DistributedCluster.__init__", "DistributedCluster.alter"],
